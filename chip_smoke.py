@@ -7,11 +7,18 @@ Phases (any failure raises, so the exit code is non-zero):
   1. environment: require CUDA, print the card, build the kernels from csrc/;
   2. data: render the 24-frame 1440x1080 synthetic workload of bench.py;
   3. each kernel against its plain PyTorch twin on the card, at the shapes
-     the main path gives it (FAST on the four pyramid levels, patches at the
-     real keypoint origins, match on the 23 real descriptor pairs plus a
-     random K=2048 case), with kernel and plain times from CUDA events;
+     the main path gives it (FAST on the four pyramid levels, bit for bit;
+     describe at each level's real keypoint origins, words equal and angle
+     differences counted; match on the 23 real descriptor pairs plus a
+     random K=2048 case), with kernel and plain device times from CUDA
+     events (device_ms: L2 evicted, host overhead hidden; call_ms: one call
+     with its launch), the describe row beside the old chain's f32 steering
+     matmul alone, and each kernel's bound: the least time for its bytes at
+     3.35 TB/s or its operations at the card's peak rate, counted from this
+     run's inputs;
   4. the port's main path, pipeline.run_experiment(backend="none",
-     device="cuda"), with every kernel's launch counter checked, the poses,
+     device="cuda"), with every kernel's launch counter checked (FAST and
+     describe once per pyramid level, match at least once), the poses,
      pair status and TUM files checked, the ATE held against the JAX
      reference, and the warm frames/s of run_sequence;
   5. with --profile only: each stage of run_sequence timed alone (host
@@ -60,17 +67,63 @@ MATCH_TOL = 0.02
 
 REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
-    "extract_patches": "droplet_visual_odometry_tpu/ops/pallas_patches.py:103",
+    "orb_describe": "droplet_visual_odometry_tpu/ops/pallas_patches.py:103",
     "hamming_match": "droplet_visual_odometry_tpu/ops/pallas_match.py:105",
 }
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s,
+# f32 operations/s outside the tensor cores, and 32-bit popcounts per clock
+# per SM (16 on sm_90) over its 132 SMs.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+POPC_PER_CLOCK_PER_SM = 16
+N_SMS = 132
+
+# Operations FAST does per pixel (csrc/fast_score.cu): every interior pixel
+# runs the compass pre-test (centre +- threshold, 8 compares); a pixel that
+# passes runs the ring (16 x: sub, abs, sub, 2 compares, 2 adds) and the max.
+FAST_PRETEST_OPS = 10
+FAST_RING_OPS = 16 * 7 + 1
+
+# Kernel timing (device_ms): the bytes written to evict the L2 before each
+# timed call, and the spin before it (about 2 ms at 1.98 GHz), longer than
+# the host takes to enqueue any timed call of this script.
+FLUSH_BYTES = 128 * 2**20
+SPIN_CYCLES = 4_000_000
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() in ms, from CUDA events after warm-up."""
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device time of one fn() in ms, from CUDA events around it.
+
+    Before each timed call a spin kernel holds the card while the host
+    enqueues the call, so the host's launch overhead is not counted, and a
+    write of FLUSH_BYTES evicts the 50 MB L2, as the main path finds each
+    input cold (an earlier stage wrote it, and a level-0 image is 149 MB)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median time of one fn() in ms between CUDA events recorded from an
+    idle card, so the host's launch overhead is included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -84,6 +137,40 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes ms, operations ms)."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), bytes_ms, ops_ms
+
+
+def sm_clocks_mhz() -> tuple[float, float]:
+    """(current, maximum) SM clock of card 0 from nvidia-smi, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
+def fast_candidates(level: torch.Tensor, threshold: float, arc: int) -> tuple[int, int]:
+    """(interior pixels, pixels that pass FAST's compass pre-test) of a level."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_fast
+
+    n, h, w = level.shape
+    c = level[:, 3:-3, 3:-3]
+    nb = torch.zeros_like(c, dtype=torch.int32)
+    nd = torch.zeros_like(c, dtype=torch.int32)
+    for j in cuda_fast.COMPASS:
+        dy, dx = cuda_fast.CIRCLE_OFFSETS[j]
+        v = level[:, 3 + dy : h - 3 + dy, 3 + dx : w - 3 + dx]
+        nb += (v > c + threshold).to(torch.int32)
+        nd += (v < c - threshold).to(torch.int32)
+    need = cuda_fast.compass_need(arc)
+    return c.numel(), int(((nb >= need) | (nd >= need)).sum())
 
 
 def phase_environment():
@@ -125,18 +212,19 @@ def phase_data():
 def phase_kernels(seq):
     from droplet_visual_odometry_tpu_torch.frontend import fast, features, filters
     from droplet_visual_odometry_tpu_torch.frontend.orb import patch_origins
-    from droplet_visual_odometry_tpu_torch.ops import cuda_fast, cuda_match, cuda_patches
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
     frames = torch.as_tensor(seq.frames).cuda().float()
     n, h0, w0 = frames.shape
     k = 512
     shapes = features.level_shapes(h0, w0, features.N_LEVELS, features.SCALE_FACTOR)
     budgets = features.level_budgets(k, features.N_LEVELS, features.SCALE_FACTOR)
-    results = {}
+    zero = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
+    fast_r = dict(zero, source="droplet_visual_odometry_tpu_torch/csrc/fast_score.cu", bound_by="bytes")
+    desc_r = dict(zero, source="droplet_visual_odometry_tpu_torch/csrc/orb_describe.cu", bound_by="bytes",
+                  steer_matmul_ms=0.0, angles_differ=0, patch_mb=0.0)
 
-    # Kernel 1: FAST on every pyramid level; kernel 2: patches at the level's real origins.
-    fast_err = patch_err = 0.0
-    fast_ms = fast_plain_ms = patch_ms = patch_plain_ms = 0.0
+    # Kernel 1: FAST on every pyramid level; kernel 2: describe at the level's real origins.
     level = frames
     for l, (lh, lw) in enumerate(shapes):
         if l > 0:
@@ -144,32 +232,61 @@ def phase_kernels(seq):
         out_k = cuda_fast.fast_score_cuda(level, 20.0, 9)
         out_p = cuda_fast.fast_score_plain(level, 20.0, 9)
         torch.cuda.synchronize()
-        if not torch.equal(out_k > 0, out_p > 0):
-            raise AssertionError(f"FAST level {l}: corner sets differ ({int((out_k > 0).ne(out_p > 0).sum())} px)")
-        err = float((out_k - out_p).abs().max())
-        if err > 1e-3:  # same f32 ops in the same neighbour order: expected 0
-            raise AssertionError(f"FAST level {l}: max |kernel - plain| = {err}")
-        fast_err = max(fast_err, err)
-        fast_ms += median_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
-        fast_plain_ms += median_ms(lambda: cuda_fast.fast_score_plain(level, 20.0, 9), reps=3, warmup=1)
-        log(f"fast_score level {l} {tuple(level.shape)}: corners {int((out_k > 0).sum())}, max err {err}")
+        if not torch.equal(out_k, out_p):  # the same f32 ops in the same neighbour order
+            raise AssertionError(f"FAST level {l}: {int((out_k != out_p).sum())} px differ from plain, "
+                                 f"max {float((out_k - out_p).abs().max())}")
+        interior, passed = fast_candidates(level, 20.0, 9)
+        b_ms, _, by_ms, op_ms = bound(8.0 * level.numel(), interior * FAST_PRETEST_OPS + passed * FAST_RING_OPS,
+                                      F32_OPS_PER_S)
+        ms = device_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
+        fast_r["ms"] += ms
+        fast_r["call_ms"] += call_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
+        fast_r["plain_ms"] += device_ms(lambda: cuda_fast.fast_score_plain(level, 20.0, 9), reps=3, warmup=1)
+        fast_r["bound_ms"] += b_ms
+        fast_r["bytes_ms"] += by_ms
+        fast_r["ops_ms"] += op_ms
+        log(f"fast_score level {l} {tuple(level.shape)}: equal to plain; corners {int((out_k > 0).sum())}; "
+            f"compass pre-test passes {passed} of {interior} interior px ({passed / interior:.4f}); "
+            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
 
         kps = fast.select_topk_rows(fast.nms3x3(out_k), budgets[l])
         blur = filters.gaussian_blur(level, 2.0, 4, compute_dtype=torch.bfloat16).contiguous()
         origins = patch_origins(kps.xy, lh, lw)
-        pk = cuda_patches.extract_patches_cuda(blur, origins, check=True)
-        pp = cuda_patches.extract_patches_plain(blur, origins)
-        err = float((pk - pp).abs().max())
-        if err != 0.0:  # a pure copy
-            raise AssertionError(f"patches level {l}: max |kernel - plain| = {err}")
-        patch_err = max(patch_err, err)
-        patch_ms += median_ms(lambda: cuda_patches.extract_patches_cuda(blur, origins))
-        patch_plain_ms += median_ms(lambda: cuda_patches.extract_patches_plain(blur, origins))
-        log(f"extract_patches level {l}: {origins.shape[0]} patches, max err {err}")
-    results["fast_score"] = dict(max_abs_err=fast_err, ms=fast_ms, plain_ms=fast_plain_ms,
-                                 source="droplet_visual_odometry_tpu_torch/csrc/fast_score.cu")
-    results["extract_patches"] = dict(max_abs_err=patch_err, ms=patch_ms, plain_ms=patch_plain_ms,
-                                      source="droplet_visual_odometry_tpu_torch/csrc/extract_patches.cu")
+        m = origins.shape[0]
+        dk, ak = cuda_describe.describe_cuda(blur, origins, check=True)
+        dp, ap = cuda_describe.describe_plain(blur, origins)
+        torch.cuda.synchronize()
+        if not torch.equal(dk, dp):
+            raise AssertionError(f"describe level {l}: {int((dk != dp).any(-1).sum())} of {m} descriptors differ")
+        two_pi = torch.full_like(ap, 2.0 * np.pi)
+        bins_k = torch.remainder(torch.round(ak / two_pi * 30), 30)
+        bins_p = torch.remainder(torch.round(ap / two_pi * 30), 30)
+        if not torch.equal(bins_k, bins_p):
+            raise AssertionError(f"describe level {l}: {int((bins_k != bins_p).sum())} angle bins differ")
+        differ = int((ak != ap).sum())
+        desc_r["angles_differ"] += differ
+        desc_r["max_abs_err"] = max(desc_r["max_abs_err"], float((ak - ap).abs().max()))
+        # The least bytes: each distinct pixel under a patch read once, the
+        # origins and the (30, 256, 2) int16 pair table read, 36 B written per keypoint.
+        covered = torch.zeros(level.shape, dtype=torch.bool, device="cuda")
+        r = torch.arange(cuda_describe.PATCH, device="cuda")
+        o = origins.long()
+        covered[o[:, 0, None, None], (o[:, 1, None] + r)[:, :, None], (o[:, 2, None] + r)[:, None, :]] = True
+        desc_bytes = 4.0 * int(covered.sum()) + 12.0 * m + cuda_describe._PAIRS.nbytes + 36.0 * m
+        b_ms, _, by_ms, op_ms = bound(desc_bytes, m * (2 * 2 * 1017 + 2 * 256), F32_OPS_PER_S)
+        q = torch.round(cuda_describe.extract_patches_plain(blur, origins).reshape(m, -1))
+        steer = cuda_describe._steer_w(q.device)
+        ms = device_ms(lambda: cuda_describe.describe_cuda(blur, origins))
+        desc_r["ms"] += ms
+        desc_r["call_ms"] += call_ms(lambda: cuda_describe.describe_cuda(blur, origins))
+        desc_r["plain_ms"] += device_ms(lambda: cuda_describe.describe_plain(blur, origins))
+        desc_r["steer_matmul_ms"] += device_ms(lambda: q @ steer)
+        desc_r["bound_ms"] += b_ms
+        desc_r["bytes_ms"] += by_ms
+        desc_r["ops_ms"] += op_ms
+        desc_r["patch_mb"] += m * cuda_describe.PATCH**2 * 4 / 1e6
+        log(f"orb_describe level {l}: {m} keypoints, words equal to plain, {differ} angles differ "
+            f"(max {float((ak - ap).abs().max())}), no bin differs; kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
 
     # Kernel 3: the 23 real descriptor pairs at K=512, plus random K=2048 sets with invalid masks.
     feats = features.detect_and_describe_batch(frames, k=k)
@@ -194,14 +311,31 @@ def phase_kernels(seq):
         match_err = max(match_err, float((ok_[0] - pl_[0]).abs().max()), float((ok_[2] - pl_[2]).abs().max()))
         log(f"match_reductions {label} {tuple(da.shape)}: equal to plain")
     _, da, db, va, vb = cases[0]
-    results["hamming_match"] = dict(
-        max_abs_err=match_err,
-        ms=median_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
-        plain_ms=median_ms(lambda: cuda_match.match_reductions_plain(da, db, va, vb)),
-        source="droplet_visual_odometry_tpu_torch/csrc/hamming_match.cu",
-    )
+    p, km = da.shape[0], da.shape[1]
+    clock_now, clock_max = sm_clocks_mhz()
+    # Bytes: both descriptor sets and masks read, four (P, K) 4-byte outputs written;
+    # operations: one XOR and one popcount per word pair, at the popcount rate.
+    match_bytes = 2 * p * km * 32 + 2 * p * km + 4 * p * km * 4
+    b_ms, by, by_ms, op_ms = bound(match_bytes, p * km * km * 8, POPC_PER_CLOCK_PER_SM * N_SMS * clock_max * 1e6)
+    results = {
+        "fast_score": fast_r,
+        "orb_describe": desc_r,
+        "hamming_match": dict(
+            max_abs_err=match_err,
+            ms=device_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
+            call_ms=call_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
+            plain_ms=device_ms(lambda: cuda_match.match_reductions_plain(da, db, va, vb)),
+            bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms,
+            sm_clock_mhz=clock_now, sm_clock_max_mhz=clock_max,
+            source="droplet_visual_odometry_tpu_torch/csrc/hamming_match.cu",
+        ),
+    }
     for name, r in results.items():
-        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms at main-path shapes")
+        log(f"{name}: kernel {r['ms']:.4f} ms (one call with its launch {r['call_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; bytes {r['bytes_ms']:.4f} ms, operations {r['ops_ms']:.4f} ms) at main-path shapes")
+    log(f"orb_describe vs the old chain's f32 steering matmul alone: {desc_r['ms']:.4f} ms vs "
+        f"{desc_r['steer_matmul_ms']:.4f} ms; patches {desc_r['patch_mb']:.1f} MB")
     return results
 
 
@@ -209,9 +343,9 @@ def phase_end_to_end(seq):
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
     from droplet_visual_odometry_tpu_torch.eval import tum
-    from droplet_visual_odometry_tpu_torch.ops import cuda_fast, cuda_match, cuda_patches
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
-    counters = (cuda_fast, cuda_patches, cuda_match)
+    counters = (cuda_fast, cuda_describe, cuda_match)
     for mod in counters:
         mod.LAUNCHES = 0
     with tempfile.TemporaryDirectory() as out_dir:
@@ -219,12 +353,12 @@ def phase_end_to_end(seq):
         res = pipeline.run_experiment(seq, VOConfig(), out_dir, SEED, backend="none", device="cuda")
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = {"fast_score": cuda_fast.LAUNCHES, "extract_patches": cuda_patches.LAUNCHES,
+        launches = {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
                     "hamming_match": cuda_match.LAUNCHES}
         log(f"run_experiment (cold, incl. upload) {cold_s:.2f} s; kernel launches {launches}")
         n_levels = VOConfig().n_levels
-        if launches["fast_score"] != n_levels or launches["extract_patches"] != n_levels:
-            raise AssertionError(f"expected {n_levels} FAST and patch launches (one per level), got {launches}")
+        if launches["fast_score"] != n_levels or launches["orb_describe"] != n_levels:
+            raise AssertionError(f"expected {n_levels} FAST and describe launches (one per level), got {launches}")
         if launches["hamming_match"] < 1:
             raise AssertionError("the match kernel never launched on the main path")
 
@@ -364,9 +498,10 @@ def main() -> int:
     launches = phase_end_to_end(seq)
     if opts.profile:
         phase_profile(seq)
+    # One run of the main path is one run_sequence, so its launches are the launches per run.
     rows = [
-        dict(name=name, route="cuda", source=r["source"], replaces=REPLACES[name], launches=launches[name],
-             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+        dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=launches[name],
+             launches_per_run=launches[name], library_ms=None)
         for name, r in kernels.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)

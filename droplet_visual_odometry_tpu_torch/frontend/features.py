@@ -4,7 +4,7 @@ droplet_visual_odometry_tpu/frontend/features.py (ORB mode).
 Each pyramid level is an antialiased bf16 resize of the previous one; on
 every level the FAST score (kernel 1) runs once over the whole batch of
 frames, then NMS, the row-bucketed top-k, the bf16 blur, the descriptor
-(kernel 2 for the patches) and the sub-pixel refinement, with coordinates
+(kernel 2, once over the whole batch) and the sub-pixel refinement, with coordinates
 mapped back to level-0 pixels. Per-level budgets are static, so the output
 always holds exactly K keypoints per frame.
 """

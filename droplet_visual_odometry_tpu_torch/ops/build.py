@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-The kernels are compiled from this package's own sources at first use, with
-one `nvcc` call for sm_90a, into `droplet_visual_odometry_tpu_torch/_build/`
+The kernels are compiled from this package's own sources at first use for
+sm_90a, one `nvcc` process per source, all started together, then linked
+into one library in `droplet_visual_odometry_tpu_torch/_build/`
 (git-ignored). The library has a plain C interface and is loaded with
 ctypes: no PyTorch headers are compiled, so a build takes seconds.
 
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # Seconds the last build in this process took (0.0 when the library was
@@ -43,7 +44,7 @@ _F = ctypes.c_float
 # c_void_p (a bare Python int would be passed as a 32-bit int and cut).
 _SIGNATURES = {
     "dvo_fast_score": [_P, _P, _I, _I, _I, _F, _I, _P],
-    "dvo_extract_patches": [_P, _P, _P, _I, _I, _I, _P],
+    "dvo_orb_describe": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
@@ -80,28 +81,40 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of any that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> str:
     """Compile csrc/*.cu into _build/ unless the keyed library exists; return its path."""
     global last_build_seconds
     srcs = sources()
-    out = os.path.join(BUILD_DIR, f"libdvo_kernels_{_digest(srcs)}.so")
+    key = _digest(srcs)
+    out = os.path.join(BUILD_DIR, f"libdvo_kernels_{key}.so")
     if os.path.exists(out):
         last_build_seconds = 0.0
         return out
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{key}.{os.getpid()}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     last_build_seconds = time.perf_counter() - t0
     return out
 

@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel droplet_visual_odometry_tpu/ops/pallas_fast.py:
 _fast_score_impl (entry points fast_score_pallas_batch / fast_score_pallas).
-Bound on the H100: a few dozen integer ops and 8 bytes of traffic per
-pixel; the kernel stages a haloed tile in shared memory so each pixel is read
-once and written once (design notes in the .cu file).
+Bound on the H100: the bytes, one f32 read and one f32 write per pixel. The
+kernel stages 128x32 tiles with their halo in shared memory, rejects most
+pixels with the compass pre-test (`COMPASS`, `compass_need`) and runs the
+full ring only on a block-wide queue of the pixels that pass (design notes
+in the .cu file). Its output equals `fast_score_plain` bit for bit.
 
 Dispatch: a CPU tensor goes to `fast_score_plain`; a CUDA tensor goes to the
 kernel, or the call raises.
@@ -17,13 +19,26 @@ import torch
 from droplet_visual_odometry_tpu_torch.ops import build
 
 # Bresenham circle of radius 3 — (dy, dx) clockwise from 12 o'clock; the
-# kernel's kDy/kDx tables hold the same offsets.
+# kernel's kDyList/kDxList tables hold the same offsets.
 CIRCLE_OFFSETS: tuple[tuple[int, int], ...] = (
     (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 )
 
 BORDER = 3  # circle radius: pixels closer than this to an edge are never corners
+
+# The kernel's pre-test reads these four neighbours first. A cyclic run of
+# n >= 1 of the 16 covers at least n // 4 of them, so a pixel with fewer
+# than compass_need(arc) hits of either polarity has no arc and scores 0.
+COMPASS = (0, 4, 8, 12)
+
+
+def compass_need(arc_length: int) -> int:
+    """Compass hits per polarity a pixel needs to reach the full ring test
+    (csrc/fast_score.cu:compass_need); 5 rejects all, as no arc > 16 exists."""
+    if arc_length > 16:
+        return 5
+    return 0 if arc_length < 4 else arc_length // 4
 
 LAUNCHES = 0  # kernel launches made by fast_score_cuda
 

@@ -3,7 +3,8 @@ droplet_visual_odometry_tpu/pipeline.py.
 
 Take a paired sequence, undistort its frames on the device, run per-pair VO
 seeded from the first marker pose, anchor, and emit ATE/RPE and the six TUM
-streams. The device is explicit: `device="cuda"` without a GPU raises.
+streams. The entry points run on the card unless the caller asks for the
+CPU (`device="cpu"`, as the tests do); `"cuda"` without a GPU raises.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def make_preprocessor(seq: VOSequence, device="cpu"):
+def make_preprocessor(seq: VOSequence, device="cuda"):
     """Chunk preprocessor: raw (C, H, W) uint8 host frames -> (C, H, W)
     float32 undistorted frames on `device`. Frames cross to the device in
     their raw dtype; the cast and the bilinear remap run there."""
@@ -53,7 +54,7 @@ def make_preprocessor(seq: VOSequence, device="cpu"):
     return lambda chunk: camera_mod.remap_bilinear(torch.as_tensor(np.asarray(chunk)).to(dev), src_map)
 
 
-def preprocess_frames(seq: VOSequence, device="cpu") -> torch.Tensor:
+def preprocess_frames(seq: VOSequence, device="cuda") -> torch.Tensor:
     return make_preprocessor(seq, device)(seq.frames)
 
 
@@ -90,7 +91,7 @@ def run_experiment(
     checkpoint_path: str | None = None,
     stream: bool | None = None,
     *,
-    device,
+    device="cuda",
 ) -> ExperimentResult:
     """Full experiment on one sequence on `device` ("cuda" or "cpu"). Writes
     the six TUM streams when out_dir is given. Only backend "none" and the

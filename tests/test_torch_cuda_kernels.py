@@ -16,7 +16,7 @@ from droplet_visual_odometry_tpu_torch import pipeline
 from droplet_visual_odometry_tpu_torch.data import synthetic
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
 from droplet_visual_odometry_tpu_torch.frontend import features, orb
-from droplet_visual_odometry_tpu_torch.ops import cuda_fast, cuda_match, cuda_patches
+from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
 pytestmark = pytest.mark.cuda
 
@@ -37,11 +37,12 @@ def _images(n, h, w, seed, integer=True):
     return torch.from_numpy(np.round(img) if integer else img)
 
 
-@pytest.mark.parametrize("h,w", [(96, 128), (101, 67), (470, 626)])
+@pytest.mark.parametrize("h,w", [(96, 128), (101, 67), (470, 626), (1080, 1440)])
 @pytest.mark.parametrize("thr,arc", [(20.0, 9), (10.0, 12), (5.0, 3), (20.0, 16), (20.0, 17)])
 def test_fast_score_kernel_equals_plain(cuda_device, h, w, thr, arc):
     """Integer images: every excess sum is exact, so kernel == plain bit for
-    bit; sizes off the 32x8 tile exercise the clamped halo and ragged edge."""
+    bit; sizes off the 128x32 tile exercise the clamped halo and ragged edge,
+    arc 9 the main path's instantiation and the others the generic one."""
     imgs = _images(3, h, w, seed=h + w).to(cuda_device)
     before = cuda_fast.LAUNCHES
     out = cuda_fast.fast_score_cuda(imgs, thr, arc)
@@ -67,27 +68,79 @@ def test_fast_score_kernel_rejects_bad_inputs(cuda_device):
         cuda_fast.fast_score_cuda(torch.zeros((2, 32, 64), device=cuda_device)[..., ::2])
 
 
-def test_extract_patches_kernel_equals_plain(cuda_device):
-    """A pure copy: exact, including origins on every edge of the image."""
-    n, h, w, m = 3, 120, 150, 500
-    imgs = torch.rand((n, h, w), generator=torch.Generator().manual_seed(0)).to(cuda_device)
-    rng = np.random.default_rng(1)
+def _describe_inputs(n, h, w, m, seed, cuda_device):
+    """Rounded-blur-like images with bright squares, and origins at random
+    places plus one on every edge and corner of the image."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 255, size=(n, h, w)).astype(np.float32)
+    for i in range(n):
+        for y, x in rng.integers(0, [h - 6, w - 6], size=(h * w // 200, 2)):
+            imgs[i, y : y + 6, x : x + 6] = rng.uniform(0, 255)
     o = np.stack([rng.integers(0, n, m), rng.integers(0, h - 36, m), rng.integers(0, w - 36, m)], axis=1)
-    o[:4, 1:] = [[0, 0], [h - 37, w - 37], [0, w - 37], [h - 37, 0]]
-    origins = torch.from_numpy(o.astype(np.int32)).to(cuda_device)
-    before = cuda_patches.LAUNCHES
-    out = cuda_patches.extract_patches_cuda(imgs, origins, check=True)
+    o[:8, 1:] = [[0, 0], [h - 37, w - 37], [0, w - 37], [h - 37, 0], [0, 40], [h - 37, 40], [30, 0], [30, w - 37]]
+    return (torch.from_numpy(imgs).to(cuda_device),
+            torch.from_numpy(o.astype(np.int32)).to(cuda_device))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_describe_kernel_equals_plain(cuda_device, integer):
+    """Words equal to the steering-matmul chain's, keypoints in all 30 angle
+    bins, and angles equal (the same atan2f and IEEE steps on the card).
+    Float images exercise the kernel's own rounding (rintf, half to even)."""
+    imgs, origins = _describe_inputs(3, 150, 190, 3000, seed=int(integer), cuda_device=cuda_device)
+    if integer:
+        imgs = torch.round(imgs)
+    before = cuda_describe.LAUNCHES
+    words, ang = cuda_describe.describe_cuda(imgs, origins, check=True)
     torch.cuda.synchronize()
-    assert cuda_patches.LAUNCHES == before + 1
-    assert torch.equal(out, cuda_patches.extract_patches_plain(imgs, origins))
+    assert cuda_describe.LAUNCHES == before + 1
+    ref_words, ref_ang = cuda_describe.describe_plain(imgs, origins)
+    bins = torch.remainder(torch.round(ref_ang / torch.full_like(ref_ang, 2 * np.pi) * 30), 30)
+    assert len(torch.unique(bins)) == 30
+    assert torch.equal(ang, ref_ang)
+    assert torch.equal(words, ref_words)
+    # Pairs whose two points coincide after clipping give bit 0, as their
+    # steering column of zeros does.
+    bits = ((words[:, :, None] >> torch.arange(32, device=cuda_device)) & 1).reshape(-1, 256).bool()
+    pairs = torch.from_numpy(cuda_describe._PAIRS).to(cuda_device)[bins.long()]
+    coincide = pairs[..., 0] == pairs[..., 1]
+    assert coincide.any() and not bits[coincide].any()
 
 
-def test_extract_patches_kernel_checks_origins(cuda_device):
+def test_describe_kernel_flat_and_ramp_patches(cuda_device):
+    """A flat patch makes every test false and its angle 0; a ramp along x
+    has angle 0 and sets exactly the bin-0 bits whose p2 lies right of p1."""
+    n, h, w = 1, 64, 64
+    flat = torch.full((n, h, w), 77.0, device=cuda_device)
+    origins = torch.tensor([[0, 10, 12]], dtype=torch.int32, device=cuda_device)
+    words, ang = cuda_describe.describe_cuda(flat, origins)
+    assert not words.any() and float(ang[0]) == 0.0
+    ramp = torch.arange(w, dtype=torch.float32, device=cuda_device).expand(n, h, w).contiguous()
+    words, ang = cuda_describe.describe_cuda(ramp, origins)
+    ref_words, ref_ang = cuda_describe.describe_plain(ramp, origins)
+    assert torch.equal(words, ref_words) and torch.equal(ang, ref_ang)
+    pairs = torch.from_numpy(cuda_describe._PAIRS[0].astype(np.int64))
+    want = cuda_describe.pack_bits((pairs[:, 1] % 37 > pairs[:, 0] % 37)[None]).to(cuda_device)
+    assert float(ang[0]) == 0.0 and torch.equal(words, want)
+
+
+def test_describe_kernel_checks_inputs(cuda_device):
     imgs = torch.zeros((2, 64, 64), device=cuda_device)
     with pytest.raises(ValueError, match="out of range"):
-        cuda_patches.extract_patches_cuda(imgs, torch.tensor([[0, 28, 0]], dtype=torch.int32, device=cuda_device), check=True)
+        cuda_describe.describe_cuda(imgs, torch.tensor([[0, 28, 0]], dtype=torch.int32, device=cuda_device), check=True)
+    with pytest.raises(ValueError, match="out of range"):
+        cuda_describe.describe_cuda(imgs, torch.tensor([[2, 0, 0]], dtype=torch.int32, device=cuda_device), check=True)
     with pytest.raises(ValueError):
-        cuda_patches.extract_patches_cuda(imgs, torch.zeros((4, 3), dtype=torch.int64, device=cuda_device))
+        cuda_describe.describe_cuda(imgs, torch.zeros((4, 3), dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        cuda_describe.describe_cuda(imgs.double(), torch.zeros((4, 3), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        cuda_describe.describe_cuda(torch.zeros((2, 30, 64), device=cuda_device),
+                                    torch.zeros((4, 3), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        cuda_describe.describe_cuda(imgs, torch.zeros((4, 3), dtype=torch.int32))
+    words, ang = cuda_describe.describe_cuda(imgs, torch.zeros((0, 3), dtype=torch.int32, device=cuda_device))
+    assert words.shape == (0, 8) and ang.shape == (0,)
 
 
 def _descriptors(p, k, seed, ties):
@@ -117,7 +170,7 @@ def test_match_reductions_kernel_equals_plain(cuda_device, k, ties):
 
 def test_slice_on_cuda_launches_every_kernel(cuda_device):
     """run_experiment on the card goes through all three kernels (one FAST
-    and one patch launch per pyramid level, one batched match) and agrees
+    and one describe launch per pyramid level, one batched match) and agrees
     with the port's CPU run: level 0 is exact, the bf16 resize sums in
     another order on the card, so match counts may move by a few in total
     (2% bound). The ATE is held to 3 cm: the port's CPU runs of this
@@ -125,10 +178,10 @@ def test_slice_on_cuda_launches_every_kernel(cuda_device):
     random samples."""
     seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=8, width=640, height=480, n_landmarks=350))
     cpu = pipeline.run_experiment(seq, VOConfig(), device="cpu")
-    for mod in (cuda_fast, cuda_patches, cuda_match):
+    for mod in (cuda_fast, cuda_describe, cuda_match):
         mod.LAUNCHES = 0
     gpu = pipeline.run_experiment(seq, VOConfig(), device=cuda_device)
-    assert (cuda_fast.LAUNCHES, cuda_patches.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
     assert np.isfinite(gpu.vo_abs).all() and gpu.trajectory.ok.all()
     dev = np.abs(gpu.trajectory.n_matches - cpu.trajectory.n_matches).sum()
     assert dev <= 0.02 * cpu.trajectory.n_matches.sum()

@@ -23,7 +23,7 @@ from droplet_visual_odometry_tpu_torch.frontend import fast as tfast
 from droplet_visual_odometry_tpu_torch.frontend import features as tfeat
 from droplet_visual_odometry_tpu_torch.frontend import filters as tfilt
 from droplet_visual_odometry_tpu_torch.frontend import orb as torb
-from droplet_visual_odometry_tpu_torch.ops import cuda_fast, cuda_patches
+from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast
 
 torch.set_num_threads(2)
 
@@ -201,7 +201,7 @@ def test_extract_patches_plain_equals_pallas():
     xy = rng.uniform(0, [w, h], size=(n, k, 2)).astype(np.float32)
     origins = torb.patch_origins(torch.from_numpy(xy), h, w)
     ref = np.asarray(extract_patches_pallas(jnp.asarray(imgs), jnp.asarray(origins.numpy()), interpret=True))
-    out = cuda_patches.extract_patches_plain(torch.from_numpy(imgs), origins, check=True).numpy()
+    out = cuda_describe.extract_patches_plain(torch.from_numpy(imgs), origins, check=True).numpy()
     np.testing.assert_array_equal(out, ref)
     # ...and the reference's own origin clamp (orb.extract_patches) gives the same patches.
     np.testing.assert_array_equal(
@@ -214,7 +214,7 @@ def test_extract_patches_check_raises_out_of_range():
     imgs = torch.zeros((1, 50, 50))
     bad = torch.tensor([[0, 20, 0]], dtype=torch.int32)  # 20 + 37 > 50
     with pytest.raises(ValueError, match="out of range"):
-        cuda_patches.extract_patches_cuda(imgs, bad, check=True)
+        cuda_describe.describe_cuda(imgs, bad, check=True)
 
 
 def test_describe_equals_reference_on_its_blur():

@@ -8,6 +8,7 @@ across packages.
 """
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -322,6 +323,18 @@ def test_cuda_device_raises_without_gpu(seqs):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpipe.run_experiment(seqs[1], tvo.VOConfig(), device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["make_preprocessor", "preprocess_frames", "run_experiment"])
+def test_entry_points_default_to_cuda(seqs, entry):
+    """Called without a device, each entry point runs on the card: here,
+    without one, it raises rather than falling back to the CPU."""
+    fn = getattr(tpipe, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(seqs[1])
 
 
 @pytest.mark.parametrize(
