@@ -15,7 +15,12 @@ Phases (any failure raises, so the exit code is non-zero):
      with its launch), the describe row beside the old chain's f32 steering
      matmul alone, and each kernel's bound: the least time for its bytes at
      3.35 TB/s or its operations at the card's peak rate, counted from this
-     run's inputs;
+     run's inputs. The match row also carries its bound at the popcount
+     rate (for reference), the time of the bf16 matmul of its +-1 operands
+     (the distance product alone, no reduction; the port never calls it),
+     the time of a launch that does nothing (the floor of that timing),
+     and a sweep at P=23 over K = 512, 1024, 2048 plus P=64 at K=512, each
+     point exact against the plain twin;
   4. the port's main path, pipeline.run_experiment(backend="none",
      device="cuda"), with every kernel's launch counter checked (FAST and
      describe once per pyramid level, match at least once), the poses,
@@ -72,10 +77,12 @@ REPLACES = {
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s,
-# f32 operations/s outside the tensor cores, and 32-bit popcounts per clock
-# per SM (16 on sm_90) over its 132 SMs.
+# f32 operations/s outside the tensor cores, dense int8 tensor-core
+# operations/s, and 32-bit popcounts per clock per SM (16 on sm_90) over its
+# 132 SMs.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 POPC_PER_CLOCK_PER_SM = 16
 N_SMS = 132
 
@@ -173,6 +180,29 @@ def fast_candidates(level: torch.Tensor, threshold: float, arc: int) -> tuple[in
     return c.numel(), int(((nb >= need) | (nd >= need)).sum())
 
 
+def match_bound(p: int, k: int) -> tuple[float, str, float, float]:
+    """Bound of the match reductions of P pairs of K descriptors: both sets
+    and masks read, four (P, K) 4-byte outputs written; 2*K*K*256
+    operations a pair (the 256-bit product popc(a & b) of every row with
+    every column) at the int8 tensor-core rate: the data sheet gives no
+    binary rate."""
+    return bound(2 * p * k * 32 + 2 * p * k + 4 * p * k * 4, 2.0 * p * k * k * 256, INT8_OPS_PER_S)
+
+
+def check_match(label: str, da, db, va, vb) -> float:
+    """Raise unless the match kernel equals its plain twin exactly; the max abs error (0)."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_match
+
+    got = cuda_match.match_reductions_cuda(da, db, va, vb)
+    want = cuda_match.match_reductions_plain(da, db, va, vb)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d1", "i1", "d2", "col_best"), got, want):
+        if not torch.equal(a, b):  # integer distances (or BIG) and indices: exact
+            raise AssertionError(f"match {label}: {name} differs in {int((a != b).sum())} entries")
+    log(f"match_reductions {label} {tuple(da.shape)}: equal to plain")
+    return max(float((got[0] - want[0]).abs().max()), float((got[2] - want[2]).abs().max()))
+
+
 def phase_environment():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; a CUDA GPU is required")
@@ -197,6 +227,7 @@ def phase_environment():
     build.library()
     log(f"kernels built in {build.last_build_seconds:.2f} s (loaded in {time.perf_counter() - t0:.2f} s) "
         f"from {', '.join(os.path.relpath(s) for s in build.sources())}")
+    log(build.last_ptxas_report)
     return name
 
 
@@ -288,35 +319,37 @@ def phase_kernels(seq):
         log(f"orb_describe level {l}: {m} keypoints, words equal to plain, {differ} angles differ "
             f"(max {float((ak - ap).abs().max())}), no bin differs; kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
 
-    # Kernel 3: the 23 real descriptor pairs at K=512, plus random K=2048 sets with invalid masks.
+    # Kernel 3: the 23 real descriptor pairs at K=512, plus random sets with invalid masks.
     feats = features.detect_and_describe_batch(frames, k=k)
-    cases = [("real K=512", feats.desc[:-1].contiguous(), feats.desc[1:].contiguous(),
-              feats.valid[:-1].contiguous(), feats.valid[1:].contiguous())]
+    da, db = feats.desc[:-1].contiguous(), feats.desc[1:].contiguous()
+    va, vb = feats.valid[:-1].contiguous(), feats.valid[1:].contiguous()
     g = torch.Generator(device="cuda").manual_seed(1)
-    k2 = 2048
-    rand_desc = lambda: torch.randint(-2**31, 2**31 - 1, (4, k2, 8), generator=g, device="cuda", dtype=torch.int64).to(torch.int32)
-    rand_valid = lambda: torch.rand((4, k2), generator=g, device="cuda") > 0.2
-    cases.append(("random K=2048", rand_desc(), rand_desc(), rand_valid(), rand_valid()))
-    match_err = 0.0
-    for label, da, db, va, vb in cases:
-        ok_ = cuda_match.match_reductions_cuda(da, db, va, vb)
-        pl_ = cuda_match.match_reductions_plain(da, db, va, vb)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("i1", "col_best"), (ok_[1], ok_[3]), (pl_[1], pl_[3])):
-            if not torch.equal(a, b):
-                raise AssertionError(f"match {label}: {name} differs in {int((a != b).sum())} entries")
-        for name, a, b in zip(("d1", "d2"), (ok_[0], ok_[2]), (pl_[0], pl_[2])):
-            if not torch.equal(a, b):  # integer distances (or BIG): exact
-                raise AssertionError(f"match {label}: {name} differs, max {float((a - b).abs().max())}")
-        match_err = max(match_err, float((ok_[0] - pl_[0]).abs().max()), float((ok_[2] - pl_[2]).abs().max()))
-        log(f"match_reductions {label} {tuple(da.shape)}: equal to plain")
-    _, da, db, va, vb = cases[0]
+
+    def rand_case(pp, kk):
+        desc = lambda: torch.randint(-2**31, 2**31 - 1, (pp, kk, 8), generator=g, device="cuda",
+                                     dtype=torch.int64).to(torch.int32)
+        valid = lambda: torch.rand((pp, kk), generator=g, device="cuda") > 0.2
+        return desc(), desc(), valid(), valid()
+
+    match_err = max(check_match("real K=512", da, db, va, vb), check_match("random K=2048", *rand_case(4, 2048)))
     p, km = da.shape[0], da.shape[1]
     clock_now, clock_max = sm_clocks_mhz()
-    # Bytes: both descriptor sets and masks read, four (P, K) 4-byte outputs written;
-    # operations: one XOR and one popcount per word pair, at the popcount rate.
-    match_bytes = 2 * p * km * 32 + 2 * p * km + 4 * p * km * 4
-    b_ms, by, by_ms, op_ms = bound(match_bytes, p * km * km * 8, POPC_PER_CLOCK_PER_SM * N_SMS * clock_max * 1e6)
+    b_ms, by, by_ms, op_ms = match_bound(p, km)
+    # The same distances as 32-bit XOR + popcount pairs at 16 popcounts per clock per SM.
+    popc_ms = p * km * km * 8 / (POPC_PER_CLOCK_PER_SM * N_SMS * clock_max * 1e6) * 1e3
+    a_pm1 = cuda_match.unpack_bits_pm1(da, torch.bfloat16)
+    bt_pm1 = cuda_match.unpack_bits_pm1(db, torch.bfloat16).transpose(-1, -2).contiguous()
+    matmul_ms = device_ms(lambda: torch.matmul(a_pm1, bt_pm1))
+    tiny = torch.empty(1, device="cuda")
+    floor_ms = device_ms(lambda: tiny.zero_())  # one launch doing nothing: the floor of device_ms
+    sweep = []
+    for sp, sk in ((23, 512), (23, 1024), (23, 2048), (64, 512)):
+        case = rand_case(sp, sk)
+        check_match(f"sweep P={sp} K={sk}", *case)
+        s_ms = device_ms(lambda: cuda_match.match_reductions_cuda(*case))
+        s_bound = match_bound(sp, sk)[0]
+        sweep.append(dict(p=sp, k=sk, ms=s_ms, bound_ms=s_bound, share=s_bound / s_ms))
+        log(f"match sweep P={sp} K={sk}: kernel {s_ms:.4f} ms, int8 bound {s_bound:.4f} ms ({s_bound / s_ms:.3f})")
     results = {
         "fast_score": fast_r,
         "orb_describe": desc_r,
@@ -325,7 +358,8 @@ def phase_kernels(seq):
             ms=device_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
             call_ms=call_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
             plain_ms=device_ms(lambda: cuda_match.match_reductions_plain(da, db, va, vb)),
-            bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms,
+            bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms, popc_bound_ms=popc_ms,
+            matmul_ms=matmul_ms, empty_launch_ms=floor_ms, k_sweep=sweep,
             sm_clock_mhz=clock_now, sm_clock_max_mhz=clock_max,
             source="droplet_visual_odometry_tpu_torch/csrc/hamming_match.cu",
         ),
@@ -334,6 +368,8 @@ def phase_kernels(seq):
         log(f"{name}: kernel {r['ms']:.4f} ms (one call with its launch {r['call_ms']:.4f} ms), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; bytes {r['bytes_ms']:.4f} ms, operations {r['ops_ms']:.4f} ms) at main-path shapes")
+    log(f"hamming_match: bound at the popcount rate {popc_ms:.4f} ms; bf16 matmul of the +-1 operands "
+        f"alone {matmul_ms:.4f} ms; a one-element zero_() under the same timing {floor_ms:.4f} ms")
     log(f"orb_describe vs the old chain's f32 steering matmul alone: {desc_r['ms']:.4f} ms vs "
         f"{desc_r['steer_matmul_ms']:.4f} ms; patches {desc_r['patch_mb']:.1f} MB")
     return results

@@ -33,8 +33,10 @@ NVCC_FLAGS = (
 )
 
 # Seconds the last build in this process took (0.0 when the library was
-# already on disk); chip_smoke.py reports it.
+# already on disk), and ptxas's report of each kernel's registers, shared
+# memory and spills from that build ("" when none ran); chip_smoke.py prints both.
 last_build_seconds = 0.0
+last_ptxas_report = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +47,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dvo_fast_score": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dvo_orb_describe": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -81,26 +83,30 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands concurrently; raise with the output of any that failed."""
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with the output of any that failed,
+    else return their combined standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         stdout, stderr = proc.communicate()
+        errs.append(stderr)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{stdout}\n{stderr}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(errs)
 
 
 def build() -> str:
     """Compile csrc/*.cu into _build/ unless the keyed library exists; return its path."""
-    global last_build_seconds
+    global last_build_seconds, last_ptxas_report
     srcs = sources()
     key = _digest(srcs)
     out = os.path.join(BUILD_DIR, f"libdvo_kernels_{key}.so")
     if os.path.exists(out):
         last_build_seconds = 0.0
+        last_ptxas_report = ""
         return out
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -108,7 +114,7 @@ def build() -> str:
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{key}.{os.getpid()}.o") for s in srcs]
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", o, s] for s, o in zip(srcs, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
     finally:
@@ -116,6 +122,9 @@ def build() -> str:
             if os.path.exists(f):
                 os.remove(f)
     last_build_seconds = time.perf_counter() - t0
+    last_ptxas_report = "\n".join(
+        l.strip() for l in log.splitlines() if l.startswith("ptxas info") or "spill" in l
+    )
     return out
 
 

@@ -153,19 +153,97 @@ def _descriptors(p, k, seed, ties):
     return torch.from_numpy(desc.view(np.int32).copy()), torch.from_numpy(valid)
 
 
-@pytest.mark.parametrize("k,ties", [(100, True), (512, False), (512, True), (2048, False), (2048, True)])
-def test_match_reductions_kernel_equals_plain(cuda_device, k, ties):
+def _match_args(da, db, va, vb, device):
+    return [t.to(device) for t in (da, db, va, vb)]
+
+
+@pytest.mark.parametrize(
+    "p,k,ties",
+    [(3, 100, True), (3, 512, False), (3, 512, True), (3, 2048, False), (3, 2048, True),
+     (3, 1, False), (3, 100, False), (3, 4096, False), (3, 4096, True),
+     (1, 512, True), (64, 512, False), (64, 512, True)],
+)
+def test_match_reductions_kernel_equals_plain(cuda_device, p, k, ties):
     """Integer distances and lowest-index ties on both sides: exact equality
-    of d1, i1, d2 and col_best (the atomicMin order cannot change a min)."""
-    da, va = _descriptors(3, k, seed=k, ties=ties)
-    db, vb = _descriptors(3, k, seed=k + 1, ties=ties)
-    args = [t.to(cuda_device) for t in (da, db, va, vb)]
+    of d1, i1, d2 and col_best (a min over packed keys has no order). K = 1
+    is a single column, K = 4096 the largest (eight row tiles per cluster
+    rank), P = 64 a loop-closure batch."""
+    da, va = _descriptors(p, k, seed=k, ties=ties)
+    db, vb = _descriptors(p, k, seed=k + 1, ties=ties)
+    args = _match_args(da, db, va, vb, cuda_device)
     before = cuda_match.LAUNCHES
     out = cuda_match.match_reductions_cuda(*args)
     torch.cuda.synchronize()
     assert cuda_match.LAUNCHES == before + 1
     for got, want in zip(out, cuda_match.match_reductions_plain(*args)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [100, 512])
+def test_match_reductions_kernel_all_invalid_lines(cuda_device, k):
+    """Pair 0 has no valid row, pair 1 no valid column, pair 2 neither: every
+    row there reports d1 = d2 = BIG and i1 = 0, and every column col_best = 0,
+    as the plain twin's argmin over an all-512 line gives."""
+    da, va = _descriptors(4, k, seed=7 * k, ties=False)
+    db, vb = _descriptors(4, k, seed=7 * k + 1, ties=False)
+    va[0] = False
+    vb[1] = False
+    va[2] = False
+    vb[2] = False
+    args = _match_args(da, db, va, vb, cuda_device)
+    d1, i1, d2, cb = cuda_match.match_reductions_cuda(*args)
+    for got, want in zip((d1, i1, d2, cb), cuda_match.match_reductions_plain(*args)):
+        assert torch.equal(got, want)
+    for q in range(3):
+        assert bool((d1[q] == cuda_match.BIG).all()) and bool((d2[q] == cuda_match.BIG).all())
+        assert not i1[q].any() and not cb[q].any()
+    assert bool((d1[3] < cuda_match.BIG).any())
+
+
+@pytest.mark.parametrize("p,k", [(2, 512), (1, 4096)])
+def test_match_reductions_kernel_ties_across_merges(cuda_device, p, k):
+    """Equal descriptors on either side of every boundary the kernel merges
+    across: m16 tiles (15/16), row halves and lane groups (31/32), 64-row
+    tiles and column slices of the cluster ranks (63/64, 511/512 at K =
+    4096), n-tiles and column quarters (7/8), the B swizzle (3/4). The lower
+    index must win each tie in i1 and col_best, and d2 must see the tie."""
+    rng = np.random.default_rng(k + p)
+    da = rng.integers(0, 2**32, size=(p, k, 8), dtype=np.uint32)
+    db = rng.integers(0, 2**32, size=(p, k, 8), dtype=np.uint32)
+    pairs = [(lo, lo + 1) for lo in (3, 7, 15, 31, 63, 127, 511) if lo + 1 < k]
+    for lo, hi in pairs:
+        db[:, hi] = db[:, lo]  # equal columns
+        da[:, lo] = db[:, lo]  # row lo is at distance 0 from both
+        da[:, hi] = db[:, lo]  # and so is row hi: equal rows
+    valid = np.ones((p, k), dtype=bool)
+    to_t = lambda d: torch.from_numpy(d.view(np.int32).copy())
+    args = _match_args(to_t(da), to_t(db), torch.from_numpy(valid), torch.from_numpy(valid), cuda_device)
+    d1, i1, d2, cb = cuda_match.match_reductions_cuda(*args)
+    for got, want in zip((d1, i1, d2, cb), cuda_match.match_reductions_plain(*args)):
+        assert torch.equal(got, want)
+    for lo, hi in pairs:
+        assert bool((i1[:, lo] == lo).all()) and bool((i1[:, hi] == lo).all())
+        assert bool((cb[:, lo] == lo).all()) and bool((cb[:, hi] == lo).all())
+        assert bool((d1[:, lo] == 0).all()) and bool((d2[:, lo] == 0).all())
+
+
+def test_match_reductions_one_kernel_no_memset(cuda_device):
+    """One call is one device operation: the match kernel, no memset and no
+    second kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    da, va = _descriptors(23, 512, seed=3, ties=False)
+    db, vb = _descriptors(23, 512, seed=4, ties=False)
+    args = _match_args(da, db, va, vb, cuda_device)
+    cuda_match.match_reductions_cuda(*args)  # builds and warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_match.match_reductions_cuda(*args)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.key for e in dev]
+    assert sum(e.count for e in dev) == 1, names
+    assert "match_kernel" in names[0] and not any("memset" in n.lower() for n in names), names
 
 
 def test_slice_on_cuda_launches_every_kernel(cuda_device):

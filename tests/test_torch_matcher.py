@@ -81,6 +81,85 @@ def test_match_reductions_plain_equals_xla_matrix(k):
     assert np.all(d2[~ok2] >= tmatch.BIG)
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _row_merge(best, second, ob, os_):
+    """csrc/hamming_match.cu:row_merge: (best, second) keys of two disjoint column sets."""
+    return torch.minimum(best, ob), torch.minimum(torch.minimum(second, os_), torch.maximum(best, ob))
+
+
+def _merge_rule_reductions(desc_a, desc_b, valid_a, valid_b, rng):
+    """csrc/hamming_match.cu's reductions in plain torch, with its tile merges
+    made over random splits and in random orders.
+
+    acc = popc(a & b) (the and-popc bit product); rterm = popc(a) + 257 *
+    [row invalid], cterm = popc(b) + 257 * [column invalid], so h' = rterm +
+    cterm - 2 * acc. Rows: keys (cterm + 256 - 2 * acc) * 4096 + col, folded
+    one column at a time within each part of a random column split, the
+    parts merged by the rule (min of bests; min of seconds and the losing
+    best), rterm added back at the end. Columns: 16-bit keys (rterm + 256 -
+    2 * acc) * 64 + local row within each 64-row tile, min over a random
+    split of the tile's rows, widened to (key >> 6 << 12) | row, min over the
+    tiles in a random order, cterm added back at the end. A final h' > 256
+    decodes to BIG and index 0."""
+    a01 = (cuda_match.unpack_bits_pm1(desc_a, torch.float32) + 1) / 2
+    b01 = (cuda_match.unpack_bits_pm1(desc_b, torch.float32) + 1) / 2
+    acc = (a01 @ b01.transpose(-1, -2)).to(torch.int64)
+    rterm = a01.sum(-1).to(torch.int64) + 257 * (~valid_a).to(torch.int64)
+    cterm = b01.sum(-1).to(torch.int64) + 257 * (~valid_b).to(torch.int64)
+    p, k = rterm.shape
+    idx = torch.arange(k)
+
+    row_key = (cterm[..., None, :] + 256 - 2 * acc) * 4096 + idx
+    best = torch.full((p, k), _U32, dtype=torch.int64)
+    second = best.clone()
+    cuts = np.sort(rng.choice(np.arange(1, k), size=min(5, k - 1), replace=False)) if k > 1 else []
+    parts = np.split(rng.permutation(k), cuts)
+    for part in rng.permutation(len(parts)):
+        pb = torch.full((p, k), _U32, dtype=torch.int64)
+        ps = pb.clone()
+        for c in parts[part]:
+            pb, ps = _row_merge(pb, ps, row_key[..., c], torch.full_like(pb, _U32))
+        best, second = _row_merge(best, second, pb, ps)
+
+    col = torch.full((p, k), _U32, dtype=torch.int64)
+    for row0 in rng.permutation(range(0, k, 64)):
+        rows = np.arange(row0, min(row0 + 64, k))
+        key16 = (rterm[:, rows, None] + 256 - 2 * acc[:, rows, :]) * 64 + torch.from_numpy(rows - row0)[None, :, None]
+        assert int(key16.min()) >= 0 and int(key16.max()) < 2**16
+        tile = torch.full((p, k), 2**16 - 1, dtype=torch.int64)
+        for sub in np.array_split(rng.permutation(len(rows)), 3):
+            if len(sub):
+                tile = torch.minimum(tile, key16[:, sub, :].amin(1))
+        col = torch.minimum(col, ((tile >> 6) << 12) | (row0 + (tile & 63)))
+
+    big = torch.full((p, k), cuda_match.BIG)
+    h1 = (best >> 12) - 256 + rterm
+    h2 = (second >> 12) - 256 + rterm
+    hc = (col >> 12) - 256 + cterm
+    d1 = torch.where(h1 <= 256, h1.to(torch.float32), big)
+    i1 = torch.where(h1 <= 256, best & 4095, torch.zeros_like(best)).to(torch.int32)
+    d2 = torch.where(h2 <= 256, h2.to(torch.float32), big)
+    cb = torch.where(hc <= 256, col & 4095, torch.zeros_like(col)).to(torch.int32)
+    return d1, i1, d2, cb
+
+
+@pytest.mark.parametrize("k", [100, 512])
+def test_kernel_merge_rule_equals_plain(k):
+    """csrc/hamming_match.cu's tile-merge algebra, in plain torch over random
+    column and row splits, equals match_reductions_plain exactly on tie-heavy
+    inputs, with a pair that has no valid row and one with no valid column."""
+    da, va = _descriptors(3, k, seed=11 * k, ties=True)
+    db, vb = _descriptors(3, k, seed=11 * k + 1, ties=True)
+    va[1] = False
+    vb[2] = False
+    args = _args(da, va, db, vb)
+    got = _merge_rule_reductions(*args, np.random.default_rng(k))
+    for g, w in zip(got, cuda_match.match_reductions_plain(*args)):
+        assert torch.equal(g, w)
+
+
 def test_hamming_matrix_equal():
     da, va = _descriptors(1, 96, seed=5)
     db, vb = _descriptors(1, 80, seed=6)
