@@ -26,12 +26,26 @@ Phases (any failure raises, so the exit code is non-zero):
      describe once per pyramid level, match at least once), the poses,
      pair status and TUM files checked, the ATE held against the JAX
      reference, and the warm frames/s of run_sequence;
-  5. with --profile only: each stage of run_sequence timed alone (host
-     clock, synchronised, median of 7) and torch.profiler over three warm
-     runs (CUDA kernels per run, device busy ms, device idle share, the
-     top kernels by device time and the top aten ops by count), printed as
-     one JSON line {"profile": {...}}.
-Then one JSON line with the per-kernel results, and last the line
+  5. the shipped default, run_experiment(backend="pose_graph") with
+     VOConfig(scale_mode="hold") and the default PoseGraphRefineConfig, on
+     a 48-frame 1440x1080 loop whose marker shows on its first and last 8
+     frames only: launch counters (FAST and describe once per level on the
+     frames and again on the keyframe stack, the match at least 3 times),
+     the bridge pair and loop edges, the graph cost, poses and TUM files,
+     the ATE against the JAX package's; then the kernels at the new shapes
+     (FAST and describe on the keyframe stack at k=1024, the match on the
+     real retrieval and verification sets at K=1024, each exact against its
+     twin and timed beside its bound), the PCG loop's two forms (the stop
+     test on the device vs read on the host each step) timed on the run's
+     graph, and the warm wall of pose_graph_trajectory;
+  6. with --profile only: each stage of run_sequence and of
+     pose_graph_trajectory timed alone (host clock, synchronised, median of
+     7) and torch.profiler over warm runs of each (CUDA kernels per run,
+     device busy ms, device idle share, the top kernels by device time and,
+     for run_sequence, the top aten ops by count), printed as one JSON line
+     {"profile": {...}}.
+Then one JSON line with the per-kernel results (`launches` from phase 5's
+run, `launches_by_path` from phases 4 and 5), and last the line
 {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a GPU, or without the rest of the
@@ -69,6 +83,22 @@ JAX_ATE_RMSE = 0.01515
 ATE_TOL = 0.02
 JAX_N_MATCHES = [241, 247, 252, 230, 240, 253, 243, 257, 247, 243, 243, 233, 237, 230, 247, 269, 243, 245, 242, 264, 227, 229, 252]
 MATCH_TOL = 0.02
+
+# The pose-graph phase's sequence (a loop at the bench workload's size; its
+# marker kept on the first and last 8 frames, as tests/test_loop_closure.py
+# does at 448x336) and the JAX package's figures on it, from
+#   JAX_PLATFORMS=cpu python tools/jax_pose_graph_figures.py --seeds 0 1 2 3
+# run on a CPU: run_experiment(backend="pose_graph") with
+# VOConfig(scale_mode="hold") and the default PoseGraphRefineConfig gives ATE
+# RMSE (m) 0.030605 / 0.035646 / 0.061291 / 0.086198 over RANSAC seeds 0-3,
+# one bridge pair and 9 / 3 / 4 / 4 loop edges. As in phase 4 the port's ATE
+# is held to seed 0's value within twice the reference's own seed-to-seed
+# spread around it (0.055593 m).
+LOOP_SEQ_CONFIG = dict(SEQ_CONFIG, n_frames=48, orbit_sweep=0.6, dolly=0.5, loop=True, noise_std=1.5)
+MARKER_KEEP = 8
+JAX_PG_ATE_RMSE = 0.030605
+PG_ATE_TOL = 0.111
+JAX_PG_BRIDGE_PAIRS = 1
 
 REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
@@ -240,22 +270,23 @@ def phase_data():
     return seq
 
 
-def phase_kernels(seq):
+def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dict]:
+    """FAST (kernel 1) on every pyramid level of `frames` and describe
+    (kernel 2) at each level's real keypoint origins for a budget of k, each
+    held against its plain twin (FAST and the descriptor words bit for bit,
+    no angle bin differing) and timed beside its bound; per-level figures
+    summed into one row per kernel."""
     from droplet_visual_odometry_tpu_torch.frontend import fast, features, filters
     from droplet_visual_odometry_tpu_torch.frontend.orb import patch_origins
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast
 
-    frames = torch.as_tensor(seq.frames).cuda().float()
     n, h0, w0 = frames.shape
-    k = 512
     shapes = features.level_shapes(h0, w0, features.N_LEVELS, features.SCALE_FACTOR)
     budgets = features.level_budgets(k, features.N_LEVELS, features.SCALE_FACTOR)
     zero = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
     fast_r = dict(zero, source="droplet_visual_odometry_tpu_torch/csrc/fast_score.cu", bound_by="bytes")
     desc_r = dict(zero, source="droplet_visual_odometry_tpu_torch/csrc/orb_describe.cu", bound_by="bytes",
                   steer_matmul_ms=0.0, angles_differ=0, patch_mb=0.0)
-
-    # Kernel 1: FAST on every pyramid level; kernel 2: describe at the level's real origins.
     level = frames
     for l, (lh, lw) in enumerate(shapes):
         if l > 0:
@@ -264,7 +295,7 @@ def phase_kernels(seq):
         out_p = cuda_fast.fast_score_plain(level, 20.0, 9)
         torch.cuda.synchronize()
         if not torch.equal(out_k, out_p):  # the same f32 ops in the same neighbour order
-            raise AssertionError(f"FAST level {l}: {int((out_k != out_p).sum())} px differ from plain, "
+            raise AssertionError(f"FAST {label} level {l}: {int((out_k != out_p).sum())} px differ from plain, "
                                  f"max {float((out_k - out_p).abs().max())}")
         interior, passed = fast_candidates(level, 20.0, 9)
         b_ms, _, by_ms, op_ms = bound(8.0 * level.numel(), interior * FAST_PRETEST_OPS + passed * FAST_RING_OPS,
@@ -276,7 +307,7 @@ def phase_kernels(seq):
         fast_r["bound_ms"] += b_ms
         fast_r["bytes_ms"] += by_ms
         fast_r["ops_ms"] += op_ms
-        log(f"fast_score level {l} {tuple(level.shape)}: equal to plain; corners {int((out_k > 0).sum())}; "
+        log(f"fast_score {label} level {l} {tuple(level.shape)}: equal to plain; corners {int((out_k > 0).sum())}; "
             f"compass pre-test passes {passed} of {interior} interior px ({passed / interior:.4f}); "
             f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
 
@@ -288,12 +319,12 @@ def phase_kernels(seq):
         dp, ap = cuda_describe.describe_plain(blur, origins)
         torch.cuda.synchronize()
         if not torch.equal(dk, dp):
-            raise AssertionError(f"describe level {l}: {int((dk != dp).any(-1).sum())} of {m} descriptors differ")
+            raise AssertionError(f"describe {label} level {l}: {int((dk != dp).any(-1).sum())} of {m} descriptors differ")
         two_pi = torch.full_like(ap, 2.0 * np.pi)
         bins_k = torch.remainder(torch.round(ak / two_pi * 30), 30)
         bins_p = torch.remainder(torch.round(ap / two_pi * 30), 30)
         if not torch.equal(bins_k, bins_p):
-            raise AssertionError(f"describe level {l}: {int((bins_k != bins_p).sum())} angle bins differ")
+            raise AssertionError(f"describe {label} level {l}: {int((bins_k != bins_p).sum())} angle bins differ")
         differ = int((ak != ap).sum())
         desc_r["angles_differ"] += differ
         desc_r["max_abs_err"] = max(desc_r["max_abs_err"], float((ak - ap).abs().max()))
@@ -316,8 +347,32 @@ def phase_kernels(seq):
         desc_r["bytes_ms"] += by_ms
         desc_r["ops_ms"] += op_ms
         desc_r["patch_mb"] += m * cuda_describe.PATCH**2 * 4 / 1e6
-        log(f"orb_describe level {l}: {m} keypoints, words equal to plain, {differ} angles differ "
+        log(f"orb_describe {label} level {l}: {m} keypoints, words equal to plain, {differ} angles differ "
             f"(max {float((ak - ap).abs().max())}), no bin differs; kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+    return fast_r, desc_r
+
+
+def match_case(label: str, da, db, va, vb) -> dict:
+    """The match kernel on one set of pairs: exact against its plain twin,
+    timed beside its int8-rate bound."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_match
+
+    args = [t.contiguous() for t in (da, db, va, vb)]
+    err = check_match(label, *args)
+    p, k = args[0].shape[0], args[0].shape[1]
+    ms = device_ms(lambda: cuda_match.match_reductions_cuda(*args))
+    b_ms = match_bound(p, k)[0]
+    log(f"match {label} P={p} K={k}: kernel {ms:.4f} ms, int8 bound {b_ms:.4f} ms ({b_ms / ms:.3f})")
+    return dict(p=p, k=k, ms=ms, bound_ms=b_ms, share=b_ms / ms, max_abs_err=err)
+
+
+def phase_kernels(seq):
+    from droplet_visual_odometry_tpu_torch.frontend import features
+    from droplet_visual_odometry_tpu_torch.ops import cuda_match
+
+    frames = torch.as_tensor(seq.frames).cuda().float()
+    k = 512
+    fast_r, desc_r = frontend_levels(frames, k, "main path")
 
     # Kernel 3: the 23 real descriptor pairs at K=512, plus random sets with invalid masks.
     feats = features.detect_and_describe_batch(frames, k=k)
@@ -439,6 +494,257 @@ def phase_end_to_end(seq):
     return launches
 
 
+def phase_loop_data():
+    """The pose-graph phase's sequence: the 48-frame 1440x1080 out-and-back
+    loop with the marker kept on its first and last 8 frames only."""
+    from droplet_visual_odometry_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(**LOOP_SEQ_CONFIG))
+    seq.marker_present[MARKER_KEEP:-MARKER_KEEP] = False
+    seq.marker_corners[MARKER_KEEP:-MARKER_KEEP] = np.nan
+    log(f"rendered the loop sequence {seq.frames.shape} in {time.perf_counter() - t0:.1f} s; marker on "
+        f"{int(seq.marker_present.sum())} frames")
+    return seq
+
+
+def pcg_host_stop(matvec, b, Minv, iters: int, tol: float) -> torch.Tensor:
+    """The reference's PCG loop (pose_graph.py:143-172) with its stop test
+    read on the host every step: the other form of backend/pose_graph._pcg,
+    which issues all iters steps and sets the step length to 0 on the
+    device once the test fails. Counts its steps in PCG_STEPS."""
+    apply_minv = lambda r: torch.einsum("mab,mb->ma", Minv, r)
+    x, r = torch.zeros_like(b), b
+    z = apply_minv(r)
+    p = z
+    stop = tol * torch.clamp(torch.sum(b * b), min=1e-30)
+    k = 0
+    while k < iters and bool(torch.sum(r * r) > stop):
+        Hp = matvec(p)
+        rz = torch.sum(r * z)
+        alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Hp
+        z_new = apply_minv(r)
+        beta = torch.sum(r * z_new) / torch.clamp(rz, min=1e-30)
+        p = z_new + beta * p
+        z = z_new
+        k += 1
+    PCG_STEPS.append(k)
+    return x
+
+
+PCG_STEPS: list[int] = []
+
+
+def loop_inputs(seq, res, cfg):
+    """The pose-graph path's intermediate inputs, rebuilt from a run's VO
+    outputs exactly as backend/refine.pose_graph_trajectory builds them."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import refine
+
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames)
+    K = pipeline.effective_K(seq).astype(np.float32)
+    corners = pipeline.effective_marker_corners(seq, K)
+    traj = res.trajectory
+    if not seq.marker_present[0]:
+        raise AssertionError("the loop sequence must carry the marker on frame 0 (no re-anchoring)")
+    vo_abs = np.asarray(traj.abs_poses, np.float64)
+    kf_idx = refine.keyframe_indices(vo_abs, traj.n_inliers, seq.marker_present, cfg.kf)
+    if len(kf_idx) != res.backend_info["n_keyframes"]:
+        raise AssertionError(f"{len(kf_idx)} keyframes rebuilt, the run had {res.backend_info['n_keyframes']}")
+    bridges = refine.bridge_pairs(seq.marker_present, kf_idx)
+    kf_frames = frames[torch.as_tensor(kf_idx, device="cuda")]
+    return dict(frames=frames, K=K, corners=corners, traj=traj, vo_abs=vo_abs, kf_idx=kf_idx, kf_frames=kf_frames,
+                extra=tuple(np.asarray(b) for b in bridges), lc=cfg.lc, cfg=cfg,
+                L=seq.real_marker_length, n_kf=len(kf_idx))
+
+
+def phase_pose_graph(seq, results) -> dict:
+    """The shipped default, run_experiment(backend="pose_graph") with
+    VOConfig(scale_mode="hold") and the default PoseGraphRefineConfig:
+    launch counters, structure, ATE against the JAX package's; then the
+    kernels at the path's new shapes (FAST and describe on the keyframe
+    stack at k=1024, the match on the real retrieval and verification
+    sets), the PCG loop's two forms, and the warm wall."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+    from droplet_visual_odometry_tpu_torch.eval import tum
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+
+    vo, cfg = VOConfig(scale_mode="hold"), refine.PoseGraphRefineConfig()
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = pipeline.run_experiment(seq, vo, out_dir, SEED, backend="pose_graph", device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
+                    "hamming_match": cuda_match.LAUNCHES}
+        info = res.backend_info
+        log(f"run_experiment(backend='pose_graph') (cold, incl. upload) {cold_s:.2f} s; kernel launches {launches}")
+        log(f"backend info {json.dumps(info)}")
+        n_levels = vo.n_levels
+        if launches["fast_score"] != 2 * n_levels or launches["orb_describe"] != 2 * n_levels:
+            raise AssertionError(f"expected {2 * n_levels} FAST and describe launches (VO frames and the keyframe "
+                                 f"stack, one per level each), got {launches}")
+        if launches["hamming_match"] < 3:
+            raise AssertionError(f"expected >= 3 match launches (VO, retrieval, verification), got {launches}")
+        n = len(seq)
+        if not (np.isfinite(res.vo_abs).all() and res.vo_abs.shape == (n, 4, 4)):
+            raise AssertionError("non-finite or misshapen absolute poses")
+        for name in tum.STREAM_NAMES:
+            stamps, poses = tum.read_tum(os.path.join(out_dir, name))
+            rows = n if name.endswith("absolute.txt") else n - 1
+            if stamps.shape != (rows,) or not np.isfinite(poses).all():
+                raise AssertionError(f"{name}: {stamps.shape} rows, finite={np.isfinite(poses).all()}")
+    if info["n_bridge_pairs"] != JAX_PG_BRIDGE_PAIRS:
+        raise AssertionError(f"{info['n_bridge_pairs']} bridge pairs, the JAX package has {JAX_PG_BRIDGE_PAIRS}")
+    if info["n_loop_edges"] < 1:
+        raise AssertionError("no loop edge, where the JAX package finds 3-9 over seeds 0-3")
+    if not info["pg_final_cost"] < info["pg_initial_cost"]:
+        raise AssertionError(f"pose-graph cost did not fall: {info['pg_initial_cost']} -> {info['pg_final_cost']}")
+    log(f"pose_graph ATE rmse {res.ate.rmse!r} m (JAX package {JAX_PG_ATE_RMSE} +- {PG_ATE_TOL}); "
+        f"RPE {res.rpe.trans_rmse!r} m / {res.rpe.rot_rmse_deg!r} deg")
+    if abs(res.ate.rmse - JAX_PG_ATE_RMSE) > PG_ATE_TOL:
+        raise AssertionError(f"pose_graph ATE {res.ate.rmse} outside {JAX_PG_ATE_RMSE} +- {PG_ATE_TOL}")
+
+    d = loop_inputs(seq, res, cfg)
+    lc = d["lc"]
+    fast_kf, desc_kf = frontend_levels(d["kf_frames"], cfg.n_keypoints, "keyframe stack")
+    feats = detect_and_describe_batch(d["kf_frames"], k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    ia, ib = loop_closure._shortlist_pairs(feats, d["n_kf"], lc.min_gap, lc.shortlist)
+    if len(ia) != lc.shortlist:
+        raise AssertionError(f"{len(ia)} retrieval pairs: the global tier did not run")
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device="cuda")
+    retrieval = match_case("retrieval", feats.desc[idx(ia)], feats.desc[idx(ib)], feats.valid[idx(ia)],
+                           feats.valid[idx(ib)])
+    ca, cb, _ = loop_closure._candidate_pairs(feats, d["n_kf"], lc, d["extra"])
+    R = max(1, lc.verify_restarts)
+    ca_p, cb_p = loop_closure._restart_layout(ca, cb, loop_closure.verify_slots(len(ca), lc), R)
+    verification = match_case("verification", feats.desc[idx(ca_p)], feats.desc[idx(cb_p)], feats.valid[idx(ca_p)],
+                              feats.valid[idx(cb_p)])
+    results["fast_score"]["keyframe_stack"] = {k: fast_kf[k] for k in ("ms", "plain_ms", "bound_ms")}
+    results["orb_describe"]["keyframe_stack"] = {k: desc_kf[k] for k in ("ms", "plain_ms", "bound_ms")}
+    results["hamming_match"]["loop_closure"] = {"retrieval": retrieval, "verification": verification}
+
+    # The PCG loop's two forms on this run's graph.
+    edges = loop_closure.find_loop_closures(
+        feats, d["vo_abs"][d["kf_idx"]], d["corners"][d["kf_idx"]], seq.marker_present[d["kf_idx"]], d["K"], d["L"],
+        vo, lc, extra_pairs=d["extra"])
+    graph = refine.loop_graph(d["vo_abs"][d["kf_idx"]], d["kf_idx"], edges, d["traj"].n_inliers, cfg,
+                              d["traj"].scale_ok, "cuda")
+    m = int(graph.poses.shape[0])
+    graph = pose_graph.pad_graph(graph, pose_graph.next_bucket(m), pose_graph.next_bucket(int(graph.edge_i.shape[0])))
+    forms = {"device": pose_graph._pcg, "host": pcg_host_stop}
+
+    def run_form(name, fn):
+        pose_graph._pcg = forms[name]
+        try:
+            return fn()
+        finally:
+            pose_graph._pcg = forms["device"]
+
+    device_stop = run_form("device", lambda: pose_graph.optimize(graph, cfg.pg))
+    PCG_STEPS.clear()
+    host_stop = run_form("host", lambda: pose_graph.optimize(graph, cfg.pg))
+    steps = list(PCG_STEPS)
+    # In turns (device, host, host, device), each turn the median of 3 calls.
+    turns = {"device": [], "host": []}
+    for name in ("device", "host", "host", "device"):
+        turns[name].append(run_form(name, lambda: wall_ms(lambda: pose_graph.optimize(graph, cfg.pg), reps=3)))
+    device_ms_, host_ms = float(np.mean(turns["device"])), float(np.mean(turns["host"]))
+    cost_dev, cost_host = float(device_stop.final_cost), float(host_stop.final_cost)
+    pose_dev = float((device_stop.poses - host_stop.poses).abs().max())
+    log(f"PCG optimize on a graph of {m} nodes, {len(edges.i)} loop edges (padded to {tuple(graph.poses.shape)[0]} "
+        f"nodes, {graph.edge_i.shape[0]} edges), {cfg.pg.iters} GN steps: device-side stop ({cfg.pg.cg_iters} CG "
+        f"steps issued) {device_ms_:.2f} ms (turns {turns['device']}), host-read stop {host_ms:.2f} ms (turns "
+        f"{turns['host']}; CG steps per GN step {steps}); "
+        f"final cost {cost_dev!r} vs {cost_host!r}, poses differ by {pose_dev:.2e}")
+    if abs(cost_dev - cost_host) > 1e-3 * abs(cost_host) or pose_dev > 1e-4:
+        raise AssertionError("the two PCG forms disagree")
+
+    args = (d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"], seq.marker_present, d["K"], d["L"], vo, cfg)
+    kw = dict(pair_scale_ok=d["traj"].scale_ok)
+    warm_ms = wall_ms(lambda: refine.pose_graph_trajectory(*args, **kw), reps=3)
+    log(f"pose_graph_trajectory warm: {warm_ms:.2f} ms over {d['n_kf']} keyframes of {len(seq)} frames")
+    return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, cold_s=cold_s, warm_ms=warm_ms,
+                pcg=dict(device_stop_ms=device_ms_, host_stop_ms=host_ms, turns_ms=turns, cg_steps=steps, nodes=m,
+                         padded_nodes=int(graph.poses.shape[0]), padded_edges=int(graph.edge_i.shape[0])),
+                inputs=d, feats=feats, graph=graph, edges=edges)
+
+
+def profile_pose_graph(seq, pg: dict) -> dict:
+    """Each stage of backend/refine.pose_graph_trajectory timed alone on the
+    loop run's inputs (host clock, synchronised, median of 7), and
+    torch.profiler over two warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+
+    d, feats, cfg = pg["inputs"], pg["feats"], pg["inputs"]["cfg"]
+    lc, vo = cfg.lc, VOConfig(scale_mode="hold")
+    kf = d["kf_idx"]
+    ia, ib = loop_closure._shortlist_pairs(feats, d["n_kf"], lc.min_gap, lc.shortlist)
+    counts = loop_closure._retrieval_counts(feats.desc, feats.valid, ia, ib, lc.match_max_distance).cpu().numpy()
+    ca, cb, _ = loop_closure._candidate_pairs(feats, d["n_kf"], lc, d["extra"])
+    R, n_slot = max(1, lc.verify_restarts), loop_closure.verify_slots(len(ca), lc)
+    ca_p, cb_p = loop_closure._restart_layout(ca, cb, n_slot, R)
+    corners = torch.nan_to_num(torch.as_tensor(d["corners"][kf], device="cuda"))
+    mvalid = torch.as_tensor(seq.marker_present[kf], device="cuda")
+    Kt = torch.as_tensor(d["K"], device="cuda")
+    vcfg = loop_closure._verify_vo_config(vo, lc)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    verify = lambda: loop_closure._verify_candidates(feats, corners, mvalid, Kt, d["L"], vcfg, ca_p, cb_p, gen)
+    res = VOStepResult(*(t.cpu().numpy().reshape((R, n_slot) + tuple(t.shape[1:])) for t in verify()))
+    refined_kf = np.linalg.inv(pose_graph.optimize(pg["graph"], cfg.pg).poses[: d["n_kf"]].cpu().numpy()
+                               .astype(np.float64))
+    stages = {
+        "keyframe_frontend": lambda: detect_and_describe_batch(d["kf_frames"], k=cfg.n_keypoints,
+                                                               threshold=cfg.fast_threshold),
+        "global_retrieval": lambda: loop_closure._shortlist_pairs(feats, d["n_kf"], lc.min_gap, lc.shortlist),
+        "retrieval_counts": lambda: loop_closure._retrieval_counts(feats.desc, feats.valid, ia, ib,
+                                                                   lc.match_max_distance),
+        "verification": verify,
+        "host_selection": lambda: (loop_closure._select_candidates(ia, ib, counts, lc),
+                                   loop_closure._pick_restarts(res, R, n_slot)),
+        "pcg_optimize": lambda: pose_graph.optimize(pg["graph"], cfg.pg),
+        "reanchor": lambda: refine.reanchor_segments(d["vo_abs"], kf, refined_kf),
+    }
+    out = {"stage_ms": {name: wall_ms(fn) for name, fn in stages.items()}}
+    args = (d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"], seq.marker_present, d["K"], d["L"], vo, cfg)
+    call = lambda: refine.pose_graph_trajectory(*args, pair_scale_ok=d["traj"].scale_ok)
+    out["pose_graph_trajectory_ms"] = wall_ms(call, reps=3)
+    runs = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    if busy_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    out.update(
+        profiled_ms_per_run=window_s * 1e3 / runs,
+        kernels_per_run=sum(e.count for e in dev) / runs,
+        device_busy_ms_per_run=busy_us / 1e3 / runs,
+        device_idle_share=1.0 - busy_us / 1e6 / window_s,
+        top_kernels_ms_per_run=[
+            [e.key[:80], e.count // runs, e.self_device_time_total / 1e3 / runs]
+            for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+        ],
+    )
+    return out
+
+
 def wall_ms(fn, reps: int = 7) -> float:
     """Median synchronised host wall of fn() in ms."""
     times = []
@@ -520,7 +826,6 @@ def phase_profile(seq) -> dict:
             for e in sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.count)[:12]
         ],
     )
-    log(json.dumps({"profile": out}))
     return out
 
 
@@ -531,13 +836,18 @@ def main() -> int:
     kind = phase_environment()
     seq = phase_data()
     kernels = phase_kernels(seq)
-    launches = phase_end_to_end(seq)
+    launches_none = phase_end_to_end(seq)
+    loop_seq = phase_loop_data()
+    pg = phase_pose_graph(loop_seq, kernels)
     if opts.profile:
-        phase_profile(seq)
-    # One run of the main path is one run_sequence, so its launches are the launches per run.
+        prof = phase_profile(seq)
+        prof["pose_graph"] = profile_pose_graph(loop_seq, pg)
+        log(json.dumps({"profile": prof}))
+    # `launches` counts the shipped default's run (run_experiment(backend="pose_graph"): VO, then the
+    # keyframe stack, retrieval and verification); launches_by_path gives each path's own run.
     rows = [
-        dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=launches[name],
-             launches_per_run=launches[name], library_ms=None)
+        dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=pg["launches"][name],
+             launches_by_path={"none": launches_none[name], "pose_graph": pg["launches"][name]}, library_ms=None)
         for name, r in kernels.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)

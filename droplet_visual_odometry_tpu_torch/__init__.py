@@ -10,7 +10,9 @@ so a reader finds each function where the reference has it:
   estimation/  batched LO-RANSAC, pose recovery, marker scale, sequence VO
   eval/        ATE/RPE, TUM writers
   ops/         hand-written CUDA kernels (csrc/*.cu), their plain twins, linalg
-  pipeline.py  run_experiment (backend "none")
+  backend/     keyframes, loop closure, the PCG pose graph, pose_graph_trajectory
+  utils/       ExperimentConfig
+  pipeline.py  run_experiment (backends "none" and "pose_graph")
 
 Rules the port keeps:
   * it imports torch and numpy, never jax;

@@ -1,6 +1,7 @@
 """SO(3)/SE(3) math on torch tensors — port of droplet_visual_odometry_tpu/core/se3.py.
 
-Only the subset on the per-pair VO path is ported. Every function broadcasts
+Only the subset on the per-pair VO path and the pose graph (se3_log,
+adjoint, ad) is ported. Every function broadcasts
 over leading batch dimensions, as in the reference.
 
 Conventions (unchanged): quaternions are xyzw; SE(3) poses are (..., 4, 4).
@@ -178,3 +179,43 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     R = I + A[..., None, None] * W + B[..., None, None] * WW
     V = I + B[..., None, None] * W + C[..., None, None] * WW
     return make_se3(R, (V @ v[..., None])[..., 0])
+
+
+def _log_coeff(theta: torch.Tensor) -> torch.Tensor:
+    """(1 - (t/2) cot(t/2)) / t^2, the coefficient of W^2 in V^-1: series
+    below 1 rad, half-angle exact form beyond."""
+    t2 = theta * theta
+    series = 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0
+    theta_safe = torch.where(theta < 1.0, torch.full_like(theta, 2.0), theta)
+    half = 0.5 * theta_safe
+    exact = (1.0 - half * torch.cos(half) / torch.sin(half)) / (theta_safe * theta_safe)
+    return torch.where(theta < 1.0, series, exact)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """4x4 -> twist (..., 6) [v, w]; inverse of se3_exp, with
+    V^-1 = I - W/2 + coef(theta) W^2."""
+    w = so3_log(rotation(T))
+    theta = torch.sqrt(torch.clamp(torch.sum(w * w, dim=-1), min=1e-24))
+    W = _hat(w)
+    Vinv = _eye_like(W) - 0.5 * W + _log_coeff(theta)[..., None, None] * (W @ W)
+    v = (Vinv @ translation(T)[..., None])[..., 0]
+    return torch.cat([v, w], dim=-1)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) adjoint (..., 6, 6) for [v, w] twists: [[R, hat(t) R], [0, R]],
+    so that T exp(xi) T^-1 = exp(Adj(T) xi)."""
+    R = rotation(T)
+    top = torch.cat([R, _hat(translation(T)) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def ad(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) small adjoint (..., 6, 6) for [v, w] twists: [[hat(w), hat(v)], [0, hat(w)]]."""
+    vx = _hat(xi[..., :3])
+    wx = _hat(xi[..., 3:])
+    top = torch.cat([wx, vx], dim=-1)
+    bot = torch.cat([torch.zeros_like(wx), wx], dim=-1)
+    return torch.cat([top, bot], dim=-2)

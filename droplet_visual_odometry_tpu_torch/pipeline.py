@@ -1,9 +1,10 @@
-"""End-to-end experiment pipeline (backend "none") — port of
-droplet_visual_odometry_tpu/pipeline.py.
+"""End-to-end experiment pipeline (backends "none" and "pose_graph") — port
+of droplet_visual_odometry_tpu/pipeline.py.
 
 Take a paired sequence, undistort its frames on the device, run per-pair VO
-seeded from the first marker pose, anchor, and emit ATE/RPE and the six TUM
-streams. The entry points run on the card unless the caller asks for the
+seeded from the first marker pose, anchor, optionally refine the trajectory
+with the pose-graph backend (keyframes fetched from the frames already on the
+device), and emit ATE/RPE and the six TUM streams. The entry points run on the card unless the caller asks for the
 CPU (`device="cpu"`, as the tests do); `"cuda"` without a GPU raises.
 """
 
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from droplet_visual_odometry_tpu_torch.backend.refine import PoseGraphRefineConfig, pose_graph_trajectory
 from droplet_visual_odometry_tpu_torch.core import camera as camera_mod
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.data.sequence import VOSequence
@@ -88,19 +90,20 @@ def run_experiment(
     out_dir: str | None = None,
     seed: int = 0,
     backend: str = "none",
+    refine_cfg=None,
     checkpoint_path: str | None = None,
     stream: bool | None = None,
     *,
     device="cuda",
 ) -> ExperimentResult:
     """Full experiment on one sequence on `device` ("cuda" or "cpu"). Writes
-    the six TUM streams when out_dir is given. Only backend "none" and the
-    in-memory path are ported; the others raise NotImplementedError."""
-    if backend == "pose_graph":
-        raise NotImplementedError("backend 'pose_graph' is not ported yet (ROADMAP A8)")
+    the six TUM streams when out_dir is given. backend "pose_graph" refines
+    the trajectory with loop closure and the pose graph (refine_cfg: a
+    PoseGraphRefineConfig, default when None). Backend "ba" and the
+    streaming path raise NotImplementedError."""
     if backend == "ba":
         raise NotImplementedError("backend 'ba' is not ported yet (ROADMAP A10)")
-    if backend != "none":
+    if backend not in ("none", "pose_graph"):
         raise ValueError(f"unknown backend: {backend}")
     frame_f32_bytes = 4 * int(np.prod(seq.frames.shape))
     if stream or checkpoint_path or (stream is None and frame_f32_bytes > 2 << 30):
@@ -128,6 +131,13 @@ def run_experiment(
     if first > 0:
         vo_abs = vo_abs @ (np.linalg.inv(vo_abs[first]) @ np.asarray(init_pose, np.float64))
 
+    backend_info: dict = {}
+    if backend == "pose_graph":
+        vo_abs, backend_info = pose_graph_trajectory(
+            frames, vo_abs, traj.n_inliers, corners, np.asarray(seq.marker_present), K,
+            seq.real_marker_length, cfg, refine_cfg or PoseGraphRefineConfig(), pair_scale_ok=traj.scale_ok,
+        )
+
     v = torch.as_tensor(vo_abs, dtype=torch.float32)
     vo_rel = se3.gt_relative(v[:-1], v[1:]).numpy().astype(np.float64)
 
@@ -148,5 +158,5 @@ def run_experiment(
         ate=metrics.ate(gt_cam, vo_cam, align="none"),
         rpe=metrics.rpe(gt_cam, vo_cam, delta=1),
         stream_paths=paths,
-        backend_info={},
+        backend_info=backend_info,
     )

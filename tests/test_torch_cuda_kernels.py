@@ -15,6 +15,7 @@ import torch
 from droplet_visual_odometry_tpu_torch import pipeline
 from droplet_visual_odometry_tpu_torch.data import synthetic
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+from droplet_visual_odometry_tpu_torch.eval import metrics
 from droplet_visual_odometry_tpu_torch.frontend import features, orb
 from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
@@ -272,3 +273,84 @@ def test_feature_layouts_on_cuda(cuda_device):
     f = features.detect_and_describe_batch(imgs, k=256)
     assert f.xy.shape == (2, 256, 2) and f.desc.shape == (2, 256, orb.N_WORDS)
     assert f.desc.dtype == torch.int32 and f.valid.dtype == torch.bool and f.xy.device.type == "cuda"
+
+
+@pytest.mark.parametrize("p", [64, 128])
+def test_match_at_loop_closure_shapes(cuda_device, p):
+    """The match at loop closure's shapes, K = 1024: P = 64 is the retrieval
+    shortlist, P = 64 or 128 the verification batch (restarts x slots).
+    Half of each B set are near copies of A rows (a few bits flipped), so
+    the Hamming gate at 64 keeps some matches and drops others: the
+    reductions and the gated crosscheck matches equal the plain twin's."""
+    from droplet_visual_odometry_tpu_torch.frontend import matcher
+
+    rng = np.random.default_rng(p)
+    da = rng.integers(0, 2**32, size=(p, 1024, 8), dtype=np.uint32)
+    db = rng.integers(0, 2**32, size=(p, 1024, 8), dtype=np.uint32)
+    rows = rng.permutation(1024)[:512]
+    flips = rng.integers(0, 2**32, size=(p, 512, 8), dtype=np.uint32) & rng.integers(0, 2**32, size=(p, 512, 8),
+                                                                                      dtype=np.uint32)
+    db[:, rows] = da[:, rows] ^ (flips & (flips >> 3) & (flips >> 7))
+    valid = rng.uniform(size=(2, p, 1024)) > 0.1
+    to_t = lambda d: torch.from_numpy(d.view(np.int32).copy())
+    cpu = [to_t(da), to_t(db), torch.from_numpy(valid[0]), torch.from_numpy(valid[1])]
+    gpu = [t.to(cuda_device) for t in cpu]
+    before = cuda_match.LAUNCHES
+    for got, want in zip(cuda_match.match_reductions_cuda(*gpu), cuda_match.match_reductions_plain(*gpu)):
+        assert torch.equal(got, want)
+    m_gpu = matcher.match(*gpu, mode="crosscheck", max_distance=64)
+    m_cpu = matcher.match(*cpu, mode="crosscheck", max_distance=64)
+    assert cuda_match.LAUNCHES == before + 2
+    for got, want in zip(m_gpu, m_cpu):
+        assert torch.equal(got.cpu(), want)
+    n = int(m_cpu.valid.sum())
+    assert 0 < n < int((m_cpu.distance < cuda_match.BIG).sum())
+
+
+def test_pose_graph_trajectory_on_cuda(cuda_device):
+    """One pose_graph_trajectory call on the card launches FAST and describe
+    once per pyramid level on the keyframe stack and the match twice
+    (retrieval counts, then verification), and with the same verification
+    draws on both devices finds the CPU run's keyframes, bridge and loop
+    pairs. The poses are held by their ATE, not element by element: on pairs
+    whose translation direction is ill-conditioned (restarts far apart) the
+    card's f32 verification picks another restart than the CPU's, which
+    moves those scale-free edges' unit translations and their weights and
+    shifts refined poses by centimetres. So the card's ATE is held to
+    the CPU run's within 0.037 m (test_run_experiment_pose_graph_agrees's
+    tolerance, twice the reference's seed-to-seed spread) and must beat the
+    raw VO chain's by a quarter."""
+    from droplet_visual_odometry_tpu_torch.backend import loop_closure, refine
+    from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
+
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(
+        n_frames=32, width=448, height=336, n_landmarks=350, orbit_sweep=0.6, dolly=0.5, loop=True, noise_std=1.5))
+    seq.marker_present[6:-6] = False
+    seq.marker_corners[6:-6] = np.nan
+    vo = VOConfig(scale_mode="hold", ransac=RansacConfig(n_hypotheses=128, lo_hypotheses=32))
+    cfg = refine.PoseGraphRefineConfig(n_keypoints=512, lc=loop_closure.LoopClosureConfig(min_gap=5, min_inliers=30))
+    base = pipeline.run_experiment(seq, vo, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    u = {}
+
+    def draws(n):
+        if n not in u:
+            u[n] = (torch.rand((n, 1024 * 8), generator=g), torch.rand((n, 2, 256 * 14), generator=g))
+        return u[n]
+
+    args = (base.vo_abs, base.trajectory.n_inliers, pipeline.effective_marker_corners(seq, seq.camera.K),
+            seq.marker_present, seq.camera.K, seq.real_marker_length, vo, cfg)
+    frames = torch.from_numpy(seq.frames).float()
+    cpu, cpu_info = refine.pose_graph_trajectory(frames, *args, pair_scale_ok=base.trajectory.scale_ok, draws=draws)
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    gpu, gpu_info = refine.pose_graph_trajectory(frames.to(cuda_device), *args, pair_scale_ok=base.trajectory.scale_ok,
+                                                 draws=draws)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 2)
+    for key in ("n_keyframes", "n_bridge_pairs", "loop_pairs"):
+        assert gpu_info[key] == cpu_info[key], key
+    assert gpu_info["n_loop_edges"] >= 1 and gpu_info["pg_final_cost"] < gpu_info["pg_initial_cost"]
+    gt_cam = np.linalg.inv(np.asarray(seq.marker_poses, np.float64))
+    ate = lambda poses: metrics.ate(gt_cam, np.linalg.inv(poses), align="none").rmse
+    assert np.isfinite(gpu).all() and gpu.shape == cpu.shape
+    assert abs(ate(gpu) - ate(cpu)) < 0.037 and ate(gpu) < 0.75 * ate(base.vo_abs)

@@ -337,9 +337,18 @@ def test_entry_points_default_to_cuda(seqs, entry):
         fn(seqs[1])
 
 
+def test_pose_graph_defaults_to_cuda(seqs):
+    """backend="pose_graph" called without a device runs on the card: here,
+    without one, it raises rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.run_experiment(seqs[1], tvo.VOConfig(scale_mode="hold"), backend="pose_graph")
+
+
 @pytest.mark.parametrize(
     "kwargs,item",
-    [(dict(backend="pose_graph"), "A8"), (dict(backend="ba"), "A10"), (dict(stream=True), "A9"),
+    [(dict(backend="pose_graph", stream=True), "A9"), (dict(backend="ba"), "A10"), (dict(stream=True), "A9"),
      (dict(checkpoint_path="ck.npz"), "A9")],
 )
 def test_unported_paths_raise(seqs, kwargs, item):
