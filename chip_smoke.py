@@ -38,15 +38,35 @@ Phases (any failure raises, so the exit code is non-zero):
      twin and timed beside its bound), the PCG loop's two forms (the stop
      test on the device vs read on the host each step) timed on the run's
      graph, and the warm wall of pose_graph_trajectory;
-  6. with --profile only: each stage of run_sequence and of
-     pose_graph_trajectory timed alone (host clock, synchronised, median of
-     7) and torch.profiler over warm runs of each (CUDA kernels per run,
+  6. backend "ba", run_experiment(backend="ba") with VOConfig(scale_mode=
+     "hold") and the default RefineConfig on the same loop: launch counters
+     (FAST and describe once per level on the frames and again on the
+     keyframe stack, the match at least twice: VO and the tracks), windows
+     run and accepted with their RMS, poses and TUM files, the ATE against
+     the JAX package's; the kernels at the path's shapes (the keyframe stack
+     at k=512, the match of all its consecutive pairs) and the warm wall of
+     refine_trajectory;
+  7. streaming, the shipped default at a depth where it switches on by
+     itself: the loop at 400 frames of 1440x1080 (2.32 GiB as float32)
+     written to a VOSTORE1 file and read back through the native store,
+     run_experiment(backend="pose_graph", stream=None, a checkpoint path,
+     chunk 256): the switch fired (2 chunks, the second padded), launch
+     counters (FAST and describe 4 per chunk and 4 on the keyframe stack),
+     the match counts against an in-memory run of the same frames and the
+     JAX package's total, a run interrupted after chunk 1 and resumed
+     against the uninterrupted one, the ATE against the JAX package's
+     streamed run; per-chunk walls and peak device memory, one chunk's
+     store read, host-to-device copy and compute, the warm streamed VO
+     frames/s, and the kernels at the chunk shapes against their twins;
+  8. with --profile only: each stage of run_sequence, pose_graph_trajectory
+     and refine_trajectory timed alone (host clock, synchronised) and
+     torch.profiler over warm runs of the first two (CUDA kernels per run,
      device busy ms, device idle share, the top kernels by device time and,
      for run_sequence, the top aten ops by count), printed as one JSON line
      {"profile": {...}}.
-Then one JSON line with the per-kernel results (`launches` from phase 5's
-run, `launches_by_path` from phases 4 and 5), and last the line
-{"ok": true, "device": {...}}.
+Then one JSON line with the per-kernel results (`launches` from phase 7's
+run, `launches_by_path` from phases 4-7, each run with the counts set to 0
+just before it), and last the line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a GPU, or without the rest of the
 repository beside it, it fails before printing any result.
@@ -55,6 +75,7 @@ repository beside it, it fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -99,6 +120,26 @@ MARKER_KEEP = 8
 JAX_PG_ATE_RMSE = 0.030605
 PG_ATE_TOL = 0.111
 JAX_PG_BRIDGE_PAIRS = 1
+
+# The BA and stream phases' figures of the JAX package, from
+#   JAX_PLATFORMS=cpu python tools/jax_stream_ba_figures.py --seeds 0 1 2 3 --chunk 32
+# run on a CPU. BA: run_experiment(backend="ba") with VOConfig(scale_mode="hold")
+# and the default RefineConfig on the 48-frame loop gives ATE RMSE (m)
+# 0.048091 / 0.052724 / 0.076524 / 0.082439 over RANSAC seeds 0-3 (seed 0:
+# 40 keyframes, 7 windows, windows 0, 1, 2, 4 and 5 accepted). Stream: the
+# loop at 400 frames, marker on the first and last 8, run_experiment with
+# backend="pose_graph" and a checkpoint path (streamed in chunks of 32 pairs:
+# the chunk changes only the random keys) gives 0.0029075 / 0.0039869 /
+# 0.0031924 / 0.0023856, 43 keyframes, one bridge pair, 9 loop edges and
+# 124,496 crosscheck matches over the 399 pairs for every seed. Each ATE is
+# held to seed 0's within twice the seed-to-seed spread (max - min).
+JAX_BA_ATE_RMSE = 0.048091
+BA_ATE_TOL = 0.0687
+STREAM_FRAMES = 400
+STREAM_CHUNK = 256
+JAX_STREAM_ATE_RMSE = 0.0029075
+STREAM_ATE_TOL = 0.0032
+JAX_STREAM_N_MATCHES = 124496
 
 REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
@@ -270,6 +311,18 @@ def phase_data():
     return seq
 
 
+def fast_plain(level: torch.Tensor) -> torch.Tensor:
+    """FAST's plain twin over PLAIN_FRAMES frames at a time (it holds 16
+    shifted copies of its input: a 257-frame chunk at once would not fit)."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_fast
+
+    return torch.cat([cuda_fast.fast_score_plain(level[i : i + PLAIN_FRAMES], 20.0, 9)
+                      for i in range(0, level.shape[0], PLAIN_FRAMES)])
+
+
+PLAIN_FRAMES = 48
+
+
 def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dict]:
     """FAST (kernel 1) on every pyramid level of `frames` and describe
     (kernel 2) at each level's real keypoint origins for a budget of k, each
@@ -292,7 +345,7 @@ def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dic
         if l > 0:
             level = filters.resize_bilinear(level, lh, lw).contiguous()
         out_k = cuda_fast.fast_score_cuda(level, 20.0, 9)
-        out_p = cuda_fast.fast_score_plain(level, 20.0, 9)
+        out_p = fast_plain(level)
         torch.cuda.synchronize()
         if not torch.equal(out_k, out_p):  # the same f32 ops in the same neighbour order
             raise AssertionError(f"FAST {label} level {l}: {int((out_k != out_p).sum())} px differ from plain, "
@@ -303,7 +356,7 @@ def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dic
         ms = device_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
         fast_r["ms"] += ms
         fast_r["call_ms"] += call_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
-        fast_r["plain_ms"] += device_ms(lambda: cuda_fast.fast_score_plain(level, 20.0, 9), reps=3, warmup=1)
+        fast_r["plain_ms"] += device_ms(lambda: fast_plain(level), reps=3, warmup=1)
         fast_r["bound_ms"] += b_ms
         fast_r["bytes_ms"] += by_ms
         fast_r["ops_ms"] += op_ms
@@ -433,38 +486,26 @@ def phase_kernels(seq):
 def phase_end_to_end(seq):
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
-    from droplet_visual_odometry_tpu_torch.eval import tum
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
-    counters = (cuda_fast, cuda_describe, cuda_match)
-    for mod in counters:
-        mod.LAUNCHES = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         res = pipeline.run_experiment(seq, VOConfig(), out_dir, SEED, backend="none", device="cuda")
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
-                    "hamming_match": cuda_match.LAUNCHES}
+        launches = read_launches()
         log(f"run_experiment (cold, incl. upload) {cold_s:.2f} s; kernel launches {launches}")
         n_levels = VOConfig().n_levels
         if launches["fast_score"] != n_levels or launches["orb_describe"] != n_levels:
             raise AssertionError(f"expected {n_levels} FAST and describe launches (one per level), got {launches}")
         if launches["hamming_match"] < 1:
             raise AssertionError("the match kernel never launched on the main path")
-
         n = len(seq)
         traj = res.trajectory
-        if not (np.isfinite(res.vo_abs).all() and res.vo_abs.shape == (n, 4, 4)):
-            raise AssertionError("non-finite or misshapen absolute poses")
+        check_run_outputs(res, out_dir, n)
         ok_frac = float(np.mean(traj.ok))
         if ok_frac < 0.9:
             raise AssertionError(f"only {ok_frac:.2f} of pairs ok")
-        for name in tum.STREAM_NAMES:
-            stamps, poses = tum.read_tum(os.path.join(out_dir, name))
-            rows = n if name.endswith("absolute.txt") else n - 1
-            if stamps.shape != (rows,) or not np.isfinite(poses).all():
-                raise AssertionError(f"{name}: {stamps.shape} rows, finite={np.isfinite(poses).all()}")
     log(f"pairs ok {ok_frac:.3f}; n_matches {traj.n_matches.tolist()}; n_inliers {traj.n_inliers.tolist()}")
     log(f"ATE rmse {res.ate.rmse!r} m (JAX reference {JAX_ATE_RMSE} +- {ATE_TOL}); "
         f"RPE {res.rpe.trans_rmse!r} m / {res.rpe.rot_rmse_deg!r} deg")
@@ -570,20 +611,16 @@ def phase_pose_graph(seq, results) -> dict:
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
-    from droplet_visual_odometry_tpu_torch.eval import tum
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
 
     vo, cfg = VOConfig(scale_mode="hold"), refine.PoseGraphRefineConfig()
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         res = pipeline.run_experiment(seq, vo, out_dir, SEED, backend="pose_graph", device="cuda")
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
-                    "hamming_match": cuda_match.LAUNCHES}
+        launches = read_launches()
         info = res.backend_info
         log(f"run_experiment(backend='pose_graph') (cold, incl. upload) {cold_s:.2f} s; kernel launches {launches}")
         log(f"backend info {json.dumps(info)}")
@@ -593,14 +630,7 @@ def phase_pose_graph(seq, results) -> dict:
                                  f"stack, one per level each), got {launches}")
         if launches["hamming_match"] < 3:
             raise AssertionError(f"expected >= 3 match launches (VO, retrieval, verification), got {launches}")
-        n = len(seq)
-        if not (np.isfinite(res.vo_abs).all() and res.vo_abs.shape == (n, 4, 4)):
-            raise AssertionError("non-finite or misshapen absolute poses")
-        for name in tum.STREAM_NAMES:
-            stamps, poses = tum.read_tum(os.path.join(out_dir, name))
-            rows = n if name.endswith("absolute.txt") else n - 1
-            if stamps.shape != (rows,) or not np.isfinite(poses).all():
-                raise AssertionError(f"{name}: {stamps.shape} rows, finite={np.isfinite(poses).all()}")
+        check_run_outputs(res, out_dir, len(seq))
     if info["n_bridge_pairs"] != JAX_PG_BRIDGE_PAIRS:
         raise AssertionError(f"{info['n_bridge_pairs']} bridge pairs, the JAX package has {JAX_PG_BRIDGE_PAIRS}")
     if info["n_loop_edges"] < 1:
@@ -681,8 +711,6 @@ def profile_pose_graph(seq, pg: dict) -> dict:
     """Each stage of backend/refine.pose_graph_trajectory timed alone on the
     loop run's inputs (host clock, synchronised, median of 7), and
     torch.profiler over two warm calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
@@ -720,7 +748,389 @@ def profile_pose_graph(seq, pg: dict) -> dict:
     args = (d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"], seq.marker_present, d["K"], d["L"], vo, cfg)
     call = lambda: refine.pose_graph_trajectory(*args, pair_scale_ok=d["traj"].scale_ok)
     out["pose_graph_trajectory_ms"] = wall_ms(call, reps=3)
-    runs = 2
+    out.update(device_profile(call, runs=2, top=10)[0])
+    return out
+
+
+def check_run_outputs(res, out_dir: str, n: int) -> None:
+    """Raise unless the run's poses are finite and shaped and its six TUM files parse."""
+    from droplet_visual_odometry_tpu_torch.eval import tum
+
+    if not (np.isfinite(res.vo_abs).all() and res.vo_abs.shape == (n, 4, 4)):
+        raise AssertionError("non-finite or misshapen absolute poses")
+    for name in tum.STREAM_NAMES:
+        stamps, poses = tum.read_tum(os.path.join(out_dir, name))
+        rows = n if name.endswith("absolute.txt") else n - 1
+        if stamps.shape != (rows,) or not np.isfinite(poses).all():
+            raise AssertionError(f"{name}: {stamps.shape} rows, finite={np.isfinite(poses).all()}")
+
+
+def reset_launches() -> None:
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+
+    return {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
+            "hamming_match": cuda_match.LAUNCHES}
+
+
+def frontend_row(r: dict) -> dict:
+    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+
+
+def accepted_windows(info: dict) -> list[int]:
+    return [i for i, r in enumerate(info.get("window_corr", [])) if r["accepted"]]
+
+
+def phase_ba(seq, results) -> dict:
+    """backend="ba": run_experiment with VOConfig(scale_mode="hold") and the
+    default RefineConfig on the loop sequence: launch counters (FAST and
+    describe once per level on the frames and again on the keyframe stack,
+    the match at least once more for the tracks), windows run and accepted,
+    poses and TUM files, the ATE against the JAX package's; then the
+    kernels at the path's shapes (the keyframe stack at k=512, the match of
+    all its consecutive pairs) and the warm wall of refine_trajectory."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import keyframes, refine, tracks
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+
+    vo, cfg = VOConfig(scale_mode="hold"), refine.RefineConfig()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = pipeline.run_experiment(seq, vo, out_dir, SEED, backend="ba", device="cuda")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = read_launches()
+        check_run_outputs(res, out_dir, len(seq))
+    info = res.backend_info
+    accepted = accepted_windows(info)
+    log(f"run_experiment(backend='ba') (cold, incl. upload) {cold_s:.2f} s; kernel launches {launches}")
+    log(f"backend info {json.dumps(info)}")
+    n_levels = vo.n_levels
+    if launches["fast_score"] != 2 * n_levels or launches["orb_describe"] != 2 * n_levels:
+        raise AssertionError(f"expected {2 * n_levels} FAST and describe launches (VO frames and the keyframe "
+                             f"stack, one per level each), got {launches}")
+    if launches["hamming_match"] < 2:
+        raise AssertionError(f"expected >= 2 match launches (VO, tracks), got {launches}")
+    if info["windows"] < 1 or not accepted:
+        raise AssertionError(f"{info['windows']} BA windows run, {len(accepted)} accepted")
+    log(f"BA: {info['n_keyframes']} keyframes, {info['windows']} windows run, accepted {accepted}, "
+        f"rms_px {info['rms_px']}")
+    log(f"ba ATE rmse {res.ate.rmse!r} m (JAX package {JAX_BA_ATE_RMSE} +- {BA_ATE_TOL}); "
+        f"RPE {res.rpe.trans_rmse!r} m / {res.rpe.rot_rmse_deg!r} deg")
+    if abs(res.ate.rmse - JAX_BA_ATE_RMSE) > BA_ATE_TOL:
+        raise AssertionError(f"ba ATE {res.ate.rmse} outside {JAX_BA_ATE_RMSE} +- {BA_ATE_TOL}")
+
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames)
+    K = pipeline.effective_K(seq).astype(np.float32)
+    corners = pipeline.effective_marker_corners(seq, K)
+    vo_abs, n_inliers = np.asarray(res.trajectory.abs_poses, np.float64), res.trajectory.n_inliers
+    kf_idx = np.where(keyframes.select_keyframes(vo_abs, n_inliers, cfg.kf))[0]
+    if len(kf_idx) != info["n_keyframes"]:
+        raise AssertionError(f"{len(kf_idx)} keyframes rebuilt, the run had {info['n_keyframes']}")
+    kf_frames = frames[torch.as_tensor(kf_idx, device="cuda")]
+    fast_kf, desc_kf = frontend_levels(kf_frames, cfg.n_keypoints, "BA keyframe stack")
+    feats = detect_and_describe_batch(kf_frames, k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    tracks_case = match_case("BA tracks", feats.desc[:-1], feats.desc[1:], feats.valid[:-1], feats.valid[1:])
+    results["fast_score"]["ba_keyframe_stack"] = frontend_row(fast_kf)
+    results["orb_describe"]["ba_keyframe_stack"] = frontend_row(desc_kf)
+    results["hamming_match"]["ba_tracks"] = tracks_case
+    args = (frames, vo_abs, n_inliers, K, cfg)
+    kw = dict(marker_corners=corners, real_marker_length=seq.real_marker_length)
+    warm_ms = wall_ms(lambda: refine.refine_trajectory(*args, **kw), reps=3)
+    log(f"refine_trajectory warm: {warm_ms:.2f} ms over {len(kf_idx)} keyframes, {info['windows']} windows")
+    return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, cold_s=cold_s, warm_ms=warm_ms,
+                inputs=dict(frames=frames, kf_frames=kf_frames, kf_idx=kf_idx, feats=feats, args=args, kw=kw,
+                            matches=tracks.match_consecutive(feats)))
+
+
+def profile_ba(ba: dict) -> dict:
+    """Each stage of backend/refine.refine_trajectory timed alone on the BA
+    run's inputs (host clock, synchronised, median of 3), summed over its
+    windows as refine_trajectory walks them, and torch.profiler over run_ba
+    on the last window."""
+    from droplet_visual_odometry_tpu_torch.backend import ba as ba_mod
+    from droplet_visual_odometry_tpu_torch.backend import refine, tracks
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.frontend.matcher import Matches
+    from droplet_visual_odometry_tpu_torch.frontend.orb import Features
+
+    d = ba["inputs"]
+    frames, vo_abs, n_inliers, K, cfg = d["args"]
+    feats, matches, kf_idx = d["feats"], d["matches"], d["kf_idx"]
+    Kt = torch.as_tensor(K, device="cuda")
+    stage = {"keyframe_frontend": wall_ms(lambda: detect_and_describe_batch(d["kf_frames"], k=cfg.n_keypoints,
+                                                                          threshold=cfg.fast_threshold), reps=3),
+             "tracks_match": wall_ms(lambda: tracks.match_consecutive(feats), reps=3),
+             "tracks_chain": 0.0, "triangulate_filter": 0.0, "run_ba": 0.0, "gates": 0.0}
+    run_ba_ms = []
+    refined = vo_abs[kf_idx].copy()
+    W = min(cfg.window, len(kf_idx))
+    start = 0
+    while start < len(kf_idx) - 2:
+        end = min(start + W, len(kf_idx))
+        sl = slice(start, end)
+        poses0 = torch.as_tensor(refined[sl], dtype=torch.float32, device="cuda")
+        wf, wm = Features(*(a[sl] for a in feats)), Matches(*(a[start : end - 1] for a in matches))
+        grid = tracks.build_tracks(wf, wm)
+        stage["tracks_chain"] += wall_ms(lambda: tracks.build_tracks(wf, wm), reps=3)
+
+        def tri():
+            X, valid = tracks.triangulate_tracks(grid, poses0, Kt, min_views=cfg.min_views)
+            return X, valid, tracks.filter_by_reprojection(grid, X, poses0, Kt, cfg.reproj_filter_px, cfg.min_views)
+
+        X, valid, g2 = tri()
+        stage["triangulate_filter"] += wall_ms(tri, reps=3)
+        mask = g2.obs_mask & valid[None, :]
+        if int(torch.sum(torch.sum(mask, 0) >= cfg.min_views)) >= 12:
+            window = ba_mod.BAWindow(poses=poses0, points=X, obs_uv=g2.obs_uv, obs_mask=mask, K=Kt)
+            ms = wall_ms(lambda: ba_mod.run_ba(window, cfg.ba), reps=3)
+            run_ba_ms.append(ms)
+            stage["run_ba"] += ms
+            res = ba_mod.run_ba(window, cfg.ba)
+            new = res.poses.cpu().numpy().astype(np.float64)
+            cost_ok = float(res.final_cost) <= float(res.initial_cost) and np.isfinite(float(res.final_cost))
+            obs = np.asarray(d["kw"]["marker_corners"], np.float64)[kf_idx[sl]]
+            L = d["kw"]["real_marker_length"]
+
+            def gates():
+                mb = refine._marker_reproj_err(refined[sl], np.asarray(K, np.float64), obs, L)
+                ma = refine._marker_reproj_err(new, np.asarray(K, np.float64), obs, L)
+                return refine._gate(new, refined[sl], cost_ok, mb, ma, cfg)
+
+            stage["gates"] += wall_ms(gates, reps=3)
+            if gates()[0]:
+                refined[sl] = new
+            start += max(W - 2, 1)
+        else:
+            start += W - 2
+    out = {"stage_ms": stage, "run_ba_ms_per_window": run_ba_ms}
+    out["refine_trajectory_ms"] = wall_ms(lambda: refine.refine_trajectory(*d["args"], **d["kw"]), reps=3)
+    # torch.profiler over run_ba on the last window that ran.
+    prof, events = device_profile(lambda: ba_mod.run_ba(window, cfg.ba), runs=2, top=10)
+    out["run_ba_profile"] = dict(prof, top_aten_ops_per_run=top_aten_ops(events, runs=2))
+    return out
+
+
+def stream_sequence():
+    """The stream phase's sequence: the loop at STREAM_FRAMES frames, the
+    marker kept on its first and last 8 frames only."""
+    from droplet_visual_odometry_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(**dict(LOOP_SEQ_CONFIG, n_frames=STREAM_FRAMES)))
+    seq.marker_present[MARKER_KEEP:-MARKER_KEEP] = False
+    seq.marker_corners[MARKER_KEEP:-MARKER_KEEP] = np.nan
+    log(f"rendered the stream sequence {seq.frames.shape} in {time.perf_counter() - t0:.1f} s; "
+        f"{4 * seq.frames.size / 2**30:.3f} GiB as float32")
+    return seq
+
+
+class Interrupted(Exception):
+    pass
+
+
+def streamed_run(seq, out_dir, ckpt, stop_after=None) -> tuple:
+    """run_experiment(backend="pose_graph", stream=None) with a checkpoint
+    path: it must take the streaming path. Spies on the chunk loop to time
+    each chunk and read the card's peak memory after it; stop_after=k
+    raises Interrupted once k chunks are saved. Returns (result, per-chunk
+    records, the streaming call's keywords)."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+
+    real = pipeline.run_sequence_checkpointed
+    calls, chunks = [], []
+    t_last = [0.0]
+
+    def on_chunk(done, n):
+        now = time.perf_counter()
+        chunks.append(dict(done=done, wall_ms=(now - t_last[0]) * 1e3,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        torch.cuda.reset_peak_memory_stats()
+        t_last[0] = now
+        if stop_after is not None and len(chunks) == stop_after:
+            raise Interrupted
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        torch.cuda.reset_peak_memory_stats()
+        t_last[0] = time.perf_counter()
+        return real(*a, progress=on_chunk, **kw)
+
+    pipeline.run_sequence_checkpointed = spy
+    try:
+        res = pipeline.run_experiment(seq, VOConfig(scale_mode="hold"), out_dir, SEED, backend="pose_graph",
+                                      checkpoint_path=ckpt, checkpoint_chunk=STREAM_CHUNK, device="cuda")
+    finally:
+        pipeline.run_sequence_checkpointed = real
+    return res, chunks, calls
+
+
+def phase_stream(results) -> dict:
+    """The shipped default at a depth where streaming switches on by itself:
+    STREAM_FRAMES frames at 1440x1080 (over 2 GiB as float32) written to a
+    VOSTORE1 file and read back through StoreReader(...).frames();
+    run_experiment(backend="pose_graph", stream=None, a checkpoint path,
+    chunk 256): 2 chunks, the second padded. Checks the switch, the launch
+    counters, the match counts against an in-memory run of the same frames,
+    a run interrupted after chunk 1 and resumed against the uninterrupted
+    one, the ATE against the JAX package's streamed run; then each kernel
+    at the chunk shapes against its twin, the anatomy of one chunk (store
+    read into the page-locked buffer, host-to-device copy, compute) and the
+    warm streamed VO rate."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.data import native_store
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.utils import checkpoint
+
+    seq = stream_sequence()
+    n = len(seq)
+    if not 4 * seq.frames.size > pipeline.STREAM_BYTES:
+        raise AssertionError("the stream sequence does not exceed the streaming threshold")
+    if not native_store.native_available():
+        raise AssertionError("the native store library is not available")
+    n_chunks = -(-(n - 1) // STREAM_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frames.vost")
+        t0 = time.perf_counter()
+        native_store.write_store(path, seq.frames, seq.timestamps)
+        log(f"wrote {os.path.getsize(path) / 1e9:.3f} GB VOSTORE1 in {time.perf_counter() - t0:.2f} s")
+        with native_store.StoreReader(path) as reader:
+            if not np.array_equal(reader.timestamps(), seq.timestamps):
+                raise AssertionError("store timestamps differ")
+            sseq = dataclasses.replace(seq, frames=reader.frames())
+
+            reset_launches()
+            ckpt = os.path.join(tmp, "state.npz")
+            out_dir = os.path.join(tmp, "out")
+            t0 = time.perf_counter()
+            res, chunks, calls = streamed_run(sseq, out_dir, ckpt)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_launches()
+            check_run_outputs(res, out_dir, n)
+            state = checkpoint.load_state(ckpt)
+            log(f"streamed run_experiment: {wall_s:.2f} s whole (cold); kernel launches {launches}; chunks "
+                f"{json.dumps(chunks)}")
+            if len(calls) != 1 or calls[0]["chunk"] != STREAM_CHUNK or len(chunks) != n_chunks:
+                raise AssertionError(f"the streaming switch did not fire as expected: {calls}, {len(chunks)} chunks")
+            if int(state["next_start"]) != n or int(state["n_total"]) != n:
+                raise AssertionError(f"checkpoint state {dict((k, state[k]) for k in ('next_start', 'n_total'))}")
+            n_levels = VOConfig().n_levels
+            want = (n_chunks + 1) * n_levels
+            if launches["fast_score"] != want or launches["orb_describe"] != want:
+                raise AssertionError(f"expected {want} FAST and describe launches "
+                                     f"({n_levels} per chunk and on the keyframe stack), got {launches}")
+            if launches["hamming_match"] < n_chunks + 1:
+                raise AssertionError(f"expected >= {n_chunks + 1} match launches, got {launches}")
+            info = res.backend_info
+            log(f"backend info {json.dumps(info)}")
+            if info["n_loop_edges"] < 1 or not info["pg_final_cost"] < info["pg_initial_cost"]:
+                raise AssertionError("no loop edge, or the pose-graph cost did not fall")
+
+            # Interrupted after chunk 1, then resumed from its state file.
+            ckpt2 = os.path.join(tmp, "state2.npz")
+            try:
+                streamed_run(sseq, None, ckpt2, stop_after=1)
+                raise AssertionError("the interrupted run was not interrupted")
+            except Interrupted:
+                pass
+            if int(checkpoint.load_state(ckpt2)["next_start"]) != STREAM_CHUNK + 1:
+                raise AssertionError("the interrupted run did not save its first chunk")
+            resumed, resumed_chunks, _ = streamed_run(sseq, None, ckpt2)
+            if len(resumed_chunks) != n_chunks - 1:
+                raise AssertionError(f"the resumed run ran {len(resumed_chunks)} chunks")
+            for f in type(res.trajectory)._fields:
+                if not np.array_equal(getattr(res.trajectory, f), getattr(resumed.trajectory, f)):
+                    raise AssertionError(f"resumed trajectory field {f} differs from the uninterrupted run")
+            pose_diff = float(np.abs(resumed.vo_abs - res.vo_abs).max())
+            log(f"resumed run: VO trajectory equal bit for bit to the uninterrupted run; refined poses differ by "
+                f"{pose_diff:.3e} (the pose graph's index_add_ sums in no fixed order on the card)")
+            if pose_diff > 1e-4 or resumed.backend_info["loop_pairs"] != info["loop_pairs"]:
+                raise AssertionError("the resumed run's refined poses or loop pairs differ")
+
+            # The same frames in memory on the card.
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mem = pipeline.run_experiment(seq, VOConfig(scale_mode="hold"), None, SEED, backend="pose_graph",
+                                          stream=False, device="cuda")
+            torch.cuda.synchronize()
+            mem_s = time.perf_counter() - t0
+            nm_s, nm_m = res.trajectory.n_matches, mem.trajectory.n_matches
+            differ = int((nm_s != nm_m).sum())
+            dev = np.abs(nm_s - nm_m).sum() / nm_m.sum()
+            log(f"in-memory run_experiment {mem_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+                f"n_matches streamed vs in memory: {n - 1 - differ}/{n - 1} pairs equal, total deviation {dev:.5f}"
+                f"; ATE in memory {mem.ate.rmse!r} m")
+            if dev > MATCH_TOL:
+                raise AssertionError(f"streamed match counts deviate {dev:.4f} from the in-memory run's")
+            total_dev = abs(int(nm_s.sum()) - JAX_STREAM_N_MATCHES) / JAX_STREAM_N_MATCHES
+            log(f"streamed n_matches total {int(nm_s.sum())} (JAX package {JAX_STREAM_N_MATCHES}, deviation "
+                f"{total_dev:.5f}); pairs ok {float(np.mean(res.trajectory.ok)):.4f}")
+            if total_dev > MATCH_TOL:
+                raise AssertionError(f"streamed match count total deviates {total_dev:.4f} from the JAX package's")
+            log(f"stream ATE rmse {res.ate.rmse!r} m (JAX package {JAX_STREAM_ATE_RMSE} +- {STREAM_ATE_TOL}); "
+                f"RPE {res.rpe.trans_rmse!r} m / {res.rpe.rot_rmse_deg!r} deg")
+            if abs(res.ate.rmse - JAX_STREAM_ATE_RMSE) > STREAM_ATE_TOL:
+                raise AssertionError(f"stream ATE {res.ate.rmse} outside {JAX_STREAM_ATE_RMSE} +- {STREAM_ATE_TOL}")
+
+            # Warm streamed VO (no checkpoint file), frames from the store.
+            preprocess = pipeline.make_preprocessor(sseq, "cuda")
+            K = pipeline.effective_K(seq).astype(np.float32)
+            corners = pipeline.effective_marker_corners(seq, K)
+            vo_args = (sseq.frames, corners, seq.marker_present, np.asarray(seq.marker_poses[0], np.float32), K,
+                       seq.real_marker_length, VOConfig(scale_mode="hold"))
+            warm_ms = wall_ms(lambda: checkpoint.run_sequence_checkpointed(
+                *vo_args, path=None, chunk=STREAM_CHUNK, seed=SEED, preprocess=preprocess, device="cuda"), reps=2)
+            log(f"streamed VO warm: {warm_ms:.2f} ms for {n} frames = {(n - 1) / warm_ms * 1e3:.2f} frames/s")
+
+            # One chunk's anatomy: store read into the page-locked buffer, copy to the card, compute.
+            staging = torch.empty((STREAM_CHUNK + 1,) + seq.frames.shape[1:], dtype=torch.uint8, pin_memory=True)
+            host = staging.numpy()
+
+            def stage():
+                host[:] = sseq.frames[0 : STREAM_CHUNK + 1]
+
+            read_ms = wall_ms(stage, reps=3)
+            h2d_ms = call_ms(lambda: staging.to("cuda", non_blocking=True), reps=5, warmup=1)
+            raw = staging.to("cuda")
+            chunk_args = (corners[: STREAM_CHUNK + 1], seq.marker_present[: STREAM_CHUNK + 1], vo_args[3], K,
+                          seq.real_marker_length, VOConfig(scale_mode="hold"))
+            compute_ms = wall_ms(lambda: run_sequence(preprocess(raw), *chunk_args, seed=SEED), reps=3)
+            log(f"one chunk of {STREAM_CHUNK} pairs: store read into the page-locked buffer {read_ms:.2f} ms, "
+                f"host-to-device copy {h2d_ms:.2f} ms ({staging.numel() / h2d_ms / 1e6:.2f} GB/s), compute "
+                f"(preprocess + run_sequence) {compute_ms:.2f} ms")
+
+            # The kernels at the chunk shapes.
+            chunk_frames = preprocess(raw)
+            fast_c, desc_c = frontend_levels(chunk_frames, VOConfig().n_keypoints, "stream chunk")
+            feats = detect_and_describe_batch(chunk_frames, k=VOConfig().n_keypoints)
+            chunk_match = match_case("stream chunk", feats.desc[:-1], feats.desc[1:], feats.valid[:-1],
+                                     feats.valid[1:])
+            results["fast_score"]["stream_chunk"] = frontend_row(fast_c)
+            results["orb_describe"]["stream_chunk"] = frontend_row(desc_c)
+            results["hamming_match"]["stream_chunk"] = chunk_match
+            del raw, chunk_frames, feats
+    return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, wall_s=wall_s, chunks=chunks,
+                in_memory_s=mem_s, match_pairs_differ=differ, warm_ms=warm_ms, read_ms=read_ms, h2d_ms=h2d_ms,
+                compute_ms=compute_ms, resumed_pose_diff=pose_diff)
+
+
+def device_profile(call, runs: int, top: int) -> tuple[dict, list]:
+    """torch.profiler over `runs` warm calls: host ms per run, CUDA kernels
+    per run, device busy ms per run, device idle share and the top kernels
+    by device time; and the profiler's events."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -728,21 +1138,26 @@ def profile_pose_graph(seq, pg: dict) -> dict:
             call()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    out.update(
+    return dict(
         profiled_ms_per_run=window_s * 1e3 / runs,
         kernels_per_run=sum(e.count for e in dev) / runs,
         device_busy_ms_per_run=busy_us / 1e3 / runs,
         device_idle_share=1.0 - busy_us / 1e6 / window_s,
         top_kernels_ms_per_run=[
             [e.key[:80], e.count // runs, e.self_device_time_total / 1e3 / runs]
-            for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+            for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
         ],
-    )
-    return out
+    ), events
+
+
+def top_aten_ops(events, runs: int, top: int = 12) -> list:
+    return [[e.key, e.count // runs]
+            for e in sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.count)[:top]]
 
 
 def wall_ms(fn, reps: int = 7) -> float:
@@ -759,8 +1174,6 @@ def wall_ms(fn, reps: int = 7) -> float:
 
 def phase_profile(seq) -> dict:
     """Stage breakdown and device idle share of a warm run_sequence."""
-    from torch.profiler import ProfilerActivity, profile
-
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.estimation import scale as scale_mod
     from droplet_visual_odometry_tpu_torch.estimation.ransac import ransac_pose
@@ -799,33 +1212,8 @@ def phase_profile(seq) -> dict:
     out = {"stage_ms": {name: wall_ms(fn) for name, fn in stages.items()}}
     out["run_sequence_ms"] = wall_ms(lambda: run_sequence(*args, seed=SEED))
 
-    runs = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            run_sequence(*args, seed=SEED)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    if busy_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    out.update(
-        profiled_ms_per_run=window_s * 1e3 / runs,
-        kernels_per_run=sum(e.count for e in dev) / runs,
-        device_busy_ms_per_run=busy_us / 1e3 / runs,
-        device_idle_share=1.0 - busy_us / 1e6 / window_s,
-        top_kernels_ms_per_run=[
-            [e.key[:80], e.count // runs, e.self_device_time_total / 1e3 / runs]
-            for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
-        ],
-        top_aten_ops_per_run=[
-            [e.key, e.count // runs]
-            for e in sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.count)[:12]
-        ],
-    )
+    prof, events = device_profile(lambda: run_sequence(*args, seed=SEED), runs=3, top=12)
+    out.update(prof, top_aten_ops_per_run=top_aten_ops(events, runs=3))
     return out
 
 
@@ -839,15 +1227,21 @@ def main() -> int:
     launches_none = phase_end_to_end(seq)
     loop_seq = phase_loop_data()
     pg = phase_pose_graph(loop_seq, kernels)
+    ba = phase_ba(loop_seq, kernels)
+    stream = phase_stream(kernels)
+    log(json.dumps({"stream": {k: v for k, v in stream.items() if k not in ("launches", "info")}}))
     if opts.profile:
         prof = phase_profile(seq)
         prof["pose_graph"] = profile_pose_graph(loop_seq, pg)
+        prof["ba"] = profile_ba(ba)
         log(json.dumps({"profile": prof}))
-    # `launches` counts the shipped default's run (run_experiment(backend="pose_graph"): VO, then the
-    # keyframe stack, retrieval and verification); launches_by_path gives each path's own run.
+    # `launches` counts the streamed run of the shipped default (run_experiment(backend="pose_graph") over
+    # 400 frames at 1440x1080: VO chunk by chunk, then the keyframe stack, retrieval and verification);
+    # launches_by_path gives each path's own run, the counts set to 0 just before it.
+    by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"]}
     rows = [
-        dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=pg["launches"][name],
-             launches_by_path={"none": launches_none[name], "pose_graph": pg["launches"][name]}, library_ms=None)
+        dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],
+             launches_by_path={path: counts[name] for path, counts in by_path.items()}, library_ms=None)
         for name, r in kernels.items()
     ]
     print(json.dumps({"kernels": rows}), flush=True)

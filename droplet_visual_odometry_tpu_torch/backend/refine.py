@@ -1,9 +1,15 @@
-"""Trajectory refinement over a VO run — port of the pose-graph half of
-droplet_visual_odometry_tpu/backend/refine.py: keyframes -> loop-closure
-retrieval and verification -> pose-graph optimisation -> trajectory
-correction. Host orchestration in numpy, device work on the frames' device.
+"""Trajectory refinement over a VO run — port of
+droplet_visual_odometry_tpu/backend/refine.py. Two backends, host
+orchestration in numpy, device work on the frames' device:
 
-The windowed-BA half (RefineConfig, refine_trajectory) is ROADMAP A10.
+  refine_trajectory     keyframes -> sliding windows of feature tracks ->
+                        windowed BA (backend/ba.py) -> trust gates ->
+                        trajectory correction;
+  pose_graph_trajectory keyframes -> loop-closure retrieval and verification
+                        -> pose-graph optimisation -> trajectory correction.
+
+Both take the frames as a tensor or as a callable idx -> frames (the
+streaming path, where whole-sequence frames never exist on the device).
 """
 
 from __future__ import annotations
@@ -13,8 +19,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from droplet_visual_odometry_tpu_torch.backend import keyframes, loop_closure, pose_graph
+from droplet_visual_odometry_tpu_torch.backend import ba, keyframes, loop_closure, pose_graph, tracks
+from droplet_visual_odometry_tpu_torch.estimation.scale import canonical_corners
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+from droplet_visual_odometry_tpu_torch.frontend.matcher import Matches
+from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 
 
 def _frame_fetcher(frames):
@@ -37,6 +46,126 @@ def reanchor_segments(abs_poses: np.ndarray, kf_idx: np.ndarray, refined_kf: np.
         for i in range(k0 + 1, k1):
             refined[i] = abs_poses[i] @ corr
     return refined
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineConfig:
+    """Same fields and defaults as the reference's RefineConfig (see its
+    comments on min_views and the two trust gates)."""
+
+    window: int = 8  # keyframes per BA window
+    kf: keyframes.KeyframeConfig = keyframes.KeyframeConfig()
+    ba: ba.BAConfig = ba.BAConfig(n_fixed=2)  # the first two poses carry the marker-metric scale
+    n_keypoints: int = 512
+    fast_threshold: float = 20.0
+    reproj_filter_px: float = 3.0
+    min_views: int = 3
+    marker_gate_tol_px: float = 0.5  # marker gate: windows with marker-bearing keyframes
+    max_rot_correction_deg: float = 3.0  # magnitude gate: marker-free windows
+    max_trans_correction_frac: float = 0.5  # of the window's chain span
+
+
+def _marker_reproj_err(poses: np.ndarray, K_np: np.ndarray, corners_obs: np.ndarray, L: float) -> float | None:
+    """Mean pixel error of the known-size marker square reprojected by cTm
+    poses against its observed (undistorted) corners; None without any."""
+    obj = canonical_corners(float(L)).numpy().astype(np.float64)  # (4, 3)
+    errs = []
+    for p, c in zip(np.asarray(poses, np.float64), corners_obs):
+        if not np.all(np.isfinite(c)):
+            continue
+        pc = (p[:3, :3] @ obj.T).T + p[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = K_np[0, 0] * pc[:, 0] / z + K_np[0, 2]
+        v = K_np[1, 1] * pc[:, 1] / z + K_np[1, 2]
+        errs.append(float(np.mean(np.hypot(u - c[:, 0], v - c[:, 1]))))
+    return float(np.mean(errs)) if errs else None
+
+
+def _gate(new_poses: np.ndarray, old_poses: np.ndarray, cost_ok: bool, m_before, m_after,
+          cfg: RefineConfig) -> tuple[bool, dict]:
+    """Trust gates on a window's output: the marker gate where the window has
+    marker observations, else the correction-magnitude gate."""
+    if m_before is not None:
+        return cost_ok and m_after <= m_before + cfg.marker_gate_tol_px, {
+            "marker_px": (round(m_before, 3), round(m_after, 3))}
+    dR = np.einsum("wij,wkj->wik", new_poses[:, :3, :3], old_poses[:, :3, :3])
+    rot_corr = np.degrees(np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    trans_corr = np.linalg.norm(new_poses[:, :3, 3] - old_poses[:, :3, 3], axis=1)
+    span = float(np.sum(np.linalg.norm(np.diff(old_poses[:, :3, 3], axis=0), axis=1)))
+    accept = (cost_ok and float(rot_corr.max()) <= cfg.max_rot_correction_deg
+              and float(trans_corr.max()) <= cfg.max_trans_correction_frac * max(span, 1e-9))
+    return accept, {"rot_deg": round(float(rot_corr.max()), 3),
+                    "trans_frac": round(float(trans_corr.max()) / max(span, 1e-9), 4)}
+
+
+def refine_trajectory(
+    frames,  # (N, H, W) float frames (undistorted) or callable idx -> frames
+    abs_poses: np.ndarray,  # (N, 4, 4) VO absolute poses (cTm)
+    n_inliers: np.ndarray,  # (N-1,)
+    K,
+    cfg: RefineConfig = RefineConfig(),
+    marker_corners: np.ndarray | None = None,  # (N, 4, 2) undistorted, NaN absent
+    real_marker_length: float | None = None,
+) -> tuple[np.ndarray, dict]:
+    """Smooth a VO trajectory with sliding-window BA.
+
+    Keyframes come from select_keyframes; one frontend pass over the
+    keyframe stack and one match of all its consecutive pairs feed every
+    window. Windows of cfg.window keyframes overlap by their two fixed
+    keyframes; a window with fewer than 12 tracks over min_views is skipped.
+    marker_corners/real_marker_length arm the marker gate.
+
+    Returns (refined (N, 4, 4) absolute poses, info dict with the
+    reference's keys).
+    """
+    abs_poses = np.asarray(abs_poses, np.float64)
+    kf_idx = np.where(keyframes.select_keyframes(abs_poses, np.asarray(n_inliers), cfg.kf))[0]
+    info: dict = {"n_keyframes": len(kf_idx), "windows": 0, "rms_px": []}
+    if len(kf_idx) < 3:
+        return abs_poses.copy(), info
+
+    feats = detect_and_describe_batch(_frame_fetcher(frames)(kf_idx), k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    matches = tracks.match_consecutive(feats)
+    dev = feats.xy.device
+    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
+    K_np = np.asarray(K, np.float64)
+    refined_kf = abs_poses[kf_idx].copy()  # cTw with world = the marker frame
+    W = min(cfg.window, len(kf_idx))
+
+    start = 0
+    while start < len(kf_idx) - 2:
+        end = min(start + W, len(kf_idx))
+        sl = slice(start, end)
+        poses0 = torch.as_tensor(refined_kf[sl], dtype=torch.float32, device=dev)
+        grid = tracks.build_tracks(Features(*(a[sl] for a in feats)), Matches(*(a[start : end - 1] for a in matches)))
+        X, valid = tracks.triangulate_tracks(grid, poses0, Kt, min_views=cfg.min_views)
+        grid = tracks.filter_by_reprojection(grid, X, poses0, Kt, cfg.reproj_filter_px, cfg.min_views)
+        mask = grid.obs_mask & valid[None, :]
+        if int(torch.sum(torch.sum(mask, 0) >= cfg.min_views)) < 12:
+            start += W - 2
+            continue
+
+        res = ba.run_ba(ba.BAWindow(poses=poses0, points=X, obs_uv=grid.obs_uv, obs_mask=mask, K=Kt), cfg.ba)
+        new_poses = res.poses.cpu().numpy().astype(np.float64)
+        old_poses = refined_kf[sl]
+        final_cost = float(res.final_cost)
+        cost_ok = final_cost <= float(res.initial_cost) and np.isfinite(final_cost)
+        m_before = m_after = None
+        if marker_corners is not None and real_marker_length is not None:
+            obs = np.asarray(marker_corners, np.float64)[kf_idx[sl]]
+            m_before = _marker_reproj_err(old_poses, K_np, obs, real_marker_length)
+            m_after = _marker_reproj_err(new_poses, K_np, obs, real_marker_length)
+        accept, rec = _gate(new_poses, old_poses, cost_ok, m_before, m_after, cfg)
+        rec["accepted"] = accept
+        info.setdefault("window_corr", []).append(rec)
+        if accept:
+            refined_kf[sl] = new_poses
+            info["rms_px"].append(float(res.rms_px))
+        info["windows"] += 1
+        # Overlap the next window by the two fixed (anchor) keyframes.
+        start += max(W - 2, 1)
+
+    return reanchor_segments(abs_poses, kf_idx, refined_kf), info
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from droplet_visual_odometry_tpu_torch.backend.ba import BAConfig
 from droplet_visual_odometry_tpu_torch.backend.keyframes import KeyframeConfig
 from droplet_visual_odometry_tpu_torch.backend.loop_closure import LoopClosureConfig
 from droplet_visual_odometry_tpu_torch.backend.pose_graph import PoseGraphConfig
-from droplet_visual_odometry_tpu_torch.backend.refine import PoseGraphRefineConfig
+from droplet_visual_odometry_tpu_torch.backend.refine import PoseGraphRefineConfig, RefineConfig
 from droplet_visual_odometry_tpu_torch.core.camera import Camera
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
@@ -50,6 +51,18 @@ def pose_graph_refine_config_from_dict(d: dict) -> PoseGraphRefineConfig:
         if name in d:
             d[name] = build(d[name])
     return PoseGraphRefineConfig(**d)
+
+
+def ba_config_from_dict(d: dict) -> BAConfig:
+    return BAConfig(**d)
+
+
+def refine_config_from_dict(d: dict) -> RefineConfig:
+    d = dict(d)
+    for name, build in (("kf", keyframe_config_from_dict), ("ba", ba_config_from_dict)):
+        if name in d:
+            d[name] = build(d[name])
+    return RefineConfig(**d)
 
 
 def experiment_config_from_dict(d: dict) -> ExperimentConfig:

@@ -138,14 +138,20 @@ def run_sequence(
     seed: int = 0,
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
+    init_scale: float | torch.Tensor = 1.0,
+    init_scale_seen: bool | torch.Tensor = False,
 ) -> VOTrajectory:
     """Per-pair VO over a sequence of (N, H, W) undistorted frames, on their device.
 
     RANSAC draws come from a torch.Generator on the frames' device seeded
     with `seed`, or from injected uniforms u_hyp (P, B*8) and u_lo
     (P, 128*14), P = N-1, to replay the reference's per-pair draws.
-    The 'hold' fill starts from scale 1.0; the reference's chunk carry
-    (init_scale, init_scale_seen) arrives with the chunked streaming path.
+
+    init_scale/init_scale_seen: the carry of scale_mode='hold' across
+    chunked runs (utils/checkpoint.py): the last held scale of the previous
+    chunk and whether a live scale has been seen. The fill holds init_scale
+    until the chunk's first live scale; as in the reference, the seen flag
+    does not change the filled values.
     """
     if cfg.scale_mode not in ("marker", "hold"):
         raise ValueError(f"unknown scale_mode: {cfg.scale_mode}")
@@ -173,7 +179,7 @@ def run_sequence(
     )
 
     if cfg.scale_mode == "hold":
-        scales = hold_fill(res.scale, res.scale_ok, 1.0)
+        scales = hold_fill(res.scale, res.scale_ok, init_scale)
         rels = res.rel_unit.clone()
         rels[:, :3, 3] = rels[:, :3, 3] * scales[:, None]
     else:

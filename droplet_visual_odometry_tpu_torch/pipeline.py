@@ -1,11 +1,14 @@
-"""End-to-end experiment pipeline (backends "none" and "pose_graph") — port
-of droplet_visual_odometry_tpu/pipeline.py.
+"""End-to-end experiment pipeline — port of
+droplet_visual_odometry_tpu/pipeline.py.
 
 Take a paired sequence, undistort its frames on the device, run per-pair VO
 seeded from the first marker pose, anchor, optionally refine the trajectory
-with the pose-graph backend (keyframes fetched from the frames already on the
-device), and emit ATE/RPE and the six TUM streams. The entry points run on the card unless the caller asks for the
-CPU (`device="cpu"`, as the tests do); `"cuda"` without a GPU raises.
+(backend "pose_graph": loop closure and the pose graph; "ba": windowed
+bundle adjustment), and emit ATE/RPE and the six TUM streams. Long sequences
+stream: raw frames stay on the host and cross to the device one chunk at a
+time (utils/checkpoint.py), and the backends fetch their keyframes the same
+way. The entry points run on the card unless the caller asks for the CPU
+(`device="cpu"`, as the tests do); `"cuda"` without a GPU raises.
 """
 
 from __future__ import annotations
@@ -15,12 +18,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from droplet_visual_odometry_tpu_torch.backend.refine import PoseGraphRefineConfig, pose_graph_trajectory
+from droplet_visual_odometry_tpu_torch.backend.refine import (
+    PoseGraphRefineConfig,
+    RefineConfig,
+    pose_graph_trajectory,
+    refine_trajectory,
+)
 from droplet_visual_odometry_tpu_torch.core import camera as camera_mod
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.data.sequence import VOSequence
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOTrajectory, run_sequence
 from droplet_visual_odometry_tpu_torch.eval import metrics, tum
+from droplet_visual_odometry_tpu_torch.utils.checkpoint import run_sequence_checkpointed
+from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
+
+BACKENDS = ("none", "pose_graph", "ba")
+# Sequences whose frames exceed this many bytes as float32 stream by default
+# (346 frames at 1440x1080).
+STREAM_BYTES = 2 << 30
 
 
 @dataclasses.dataclass
@@ -37,23 +52,18 @@ class ExperimentResult:
     backend_info: dict | None = None
 
 
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
-    return dev
-
-
 def make_preprocessor(seq: VOSequence, device="cuda"):
-    """Chunk preprocessor: raw (C, H, W) uint8 host frames -> (C, H, W)
-    float32 undistorted frames on `device`. Frames cross to the device in
-    their raw dtype; the cast and the bilinear remap run there."""
+    """Chunk preprocessor: raw (C, H, W) uint8 frames (a host array-like or
+    a tensor) -> (C, H, W) float32 undistorted frames on `device`. Frames
+    cross to the device in their raw dtype; the cast and the bilinear remap
+    run there."""
     dev = resolve_device(device)
+    to_dev = lambda c: (c if isinstance(c, torch.Tensor) else torch.as_tensor(np.asarray(c))).to(dev)
     if not np.any(seq.camera.dist):
-        return lambda chunk: torch.as_tensor(np.asarray(chunk)).to(dev).to(torch.float32)
+        return lambda chunk: to_dev(chunk).to(torch.float32)
     new_K = camera_mod.optimal_new_camera_matrix(seq.camera, alpha=1.0)
     src_map = camera_mod.undistort_rectify_map(seq.camera, new_K, device=dev)
-    return lambda chunk: camera_mod.remap_bilinear(torch.as_tensor(np.asarray(chunk)).to(dev), src_map)
+    return lambda chunk: camera_mod.remap_bilinear(to_dev(chunk), src_map)
 
 
 def preprocess_frames(seq: VOSequence, device="cuda") -> torch.Tensor:
@@ -92,38 +102,47 @@ def run_experiment(
     backend: str = "none",
     refine_cfg=None,
     checkpoint_path: str | None = None,
+    checkpoint_chunk: int = 256,
     stream: bool | None = None,
     *,
     device="cuda",
 ) -> ExperimentResult:
     """Full experiment on one sequence on `device` ("cuda" or "cpu"). Writes
-    the six TUM streams when out_dir is given. backend "pose_graph" refines
-    the trajectory with loop closure and the pose graph (refine_cfg: a
-    PoseGraphRefineConfig, default when None). Backend "ba" and the
-    streaming path raise NotImplementedError."""
-    if backend == "ba":
-        raise NotImplementedError("backend 'ba' is not ported yet (ROADMAP A10)")
-    if backend not in ("none", "pose_graph"):
-        raise ValueError(f"unknown backend: {backend}")
-    frame_f32_bytes = 4 * int(np.prod(seq.frames.shape))
-    if stream or checkpoint_path or (stream is None and frame_f32_bytes > 2 << 30):
-        raise NotImplementedError(
-            "the chunked streaming path (stream=True, a checkpoint, or frames over 2 GB as "
-            "float32) is not ported yet (ROADMAP A9: utils/checkpoint.py)"
-        )
-    dev = resolve_device(device)
+    the six TUM streams when out_dir is given. backend: "none", "pose_graph"
+    (refine_cfg a PoseGraphRefineConfig) or "ba" (a RefineConfig); None
+    takes the backend's default config.
 
+    stream: run VO in chunks of `checkpoint_chunk` pairs from host frames
+    (an ndarray, np.memmap or StoreFrames), resumable from checkpoint_path.
+    None turns it on for a checkpoint path or for frames over STREAM_BYTES
+    as float32.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {backend}")
+    dev = resolve_device(device)
+    preprocess = make_preprocessor(seq, dev)
     K = effective_K(seq).astype(np.float32)
     corners = effective_marker_corners(seq, K)
+    if stream is None:
+        stream = bool(checkpoint_path) or 4 * int(np.prod(seq.frames.shape)) > STREAM_BYTES
     first = int(np.argmax(seq.marker_present)) if seq.marker_present.any() else 0
     init_pose = np.asarray(seq.marker_poses[first], np.float32)
 
-    frames = make_preprocessor(seq, dev)(seq.frames)
-    traj = run_sequence(
-        frames, corners, np.asarray(seq.marker_present), init_pose, K,
-        seq.real_marker_length, cfg, seed=seed,
-    )
-    traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
+    if stream:
+        traj = run_sequence_checkpointed(
+            seq.frames, corners, np.asarray(seq.marker_present), init_pose, K, seq.real_marker_length, cfg,
+            path=checkpoint_path, chunk=checkpoint_chunk, seed=seed, preprocess=preprocess, device=dev,
+        )
+        # The backends take the frames or a fetcher: here keyframes cross to
+        # the device as a host gather.
+        frames = lambda idx: preprocess(seq.frames[np.asarray(idx)])
+    else:
+        frames = preprocess(seq.frames)
+        traj = run_sequence(
+            frames, corners, np.asarray(seq.marker_present), init_pose, K,
+            seq.real_marker_length, cfg, seed=seed,
+        )
+        traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
 
     gt_abs, gt_rel = gt_streams(seq)
     vo_abs = np.asarray(traj.abs_poses, np.float64)
@@ -136,6 +155,11 @@ def run_experiment(
         vo_abs, backend_info = pose_graph_trajectory(
             frames, vo_abs, traj.n_inliers, corners, np.asarray(seq.marker_present), K,
             seq.real_marker_length, cfg, refine_cfg or PoseGraphRefineConfig(), pair_scale_ok=traj.scale_ok,
+        )
+    elif backend == "ba":
+        vo_abs, backend_info = refine_trajectory(
+            frames, vo_abs, traj.n_inliers, K, refine_cfg or RefineConfig(),
+            marker_corners=corners, real_marker_length=seq.real_marker_length,
         )
 
     v = torch.as_tensor(vo_abs, dtype=torch.float32)

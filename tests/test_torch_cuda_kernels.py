@@ -354,3 +354,117 @@ def test_pose_graph_trajectory_on_cuda(cuda_device):
     ate = lambda poses: metrics.ate(gt_cam, np.linalg.inv(poses), align="none").rmse
     assert np.isfinite(gpu).all() and gpu.shape == cpu.shape
     assert abs(ate(gpu) - ate(cpu)) < 0.037 and ate(gpu) < 0.75 * ate(base.vo_abs)
+
+
+def _ba_window(seed=0, W=6, L=120, noise_px=0.5):
+    """A perturbed BA window (test_backend.py's make_ba_problem, in torch)."""
+    from droplet_visual_odometry_tpu_torch.backend import ba
+    from droplet_visual_odometry_tpu_torch.core import se3
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -1.5, 4], [2, 1.5, 9], size=(L, 3)).astype(np.float32)
+    xi = np.concatenate([np.stack([0.25 * np.arange(W), 0.02 * np.arange(W), np.zeros(W)], 1)
+                         + rng.normal(scale=0.02, size=(W, 3)), rng.normal(scale=0.03, size=(W, 3))], 1)
+    poses = se3.se3_exp(torch.from_numpy(xi.astype(np.float32)))
+    K = torch.tensor([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    p, uv = ba._project(poses, torch.from_numpy(pts), K)
+    uv = uv + torch.from_numpy(rng.normal(scale=noise_px, size=tuple(uv.shape)).astype(np.float32))
+    inside = (p[..., 2] > 0.1) & (uv[..., 0] > 0) & (uv[..., 0] < 640) & (uv[..., 1] > 0) & (uv[..., 1] < 480)
+    mask = inside & torch.from_numpy(rng.uniform(size=tuple(inside.shape)) > 0.1)
+    dxi = rng.normal(scale=0.02, size=(W, 6)).astype(np.float32)
+    dxi[0] = 0
+    poses0 = se3.se3_exp(torch.from_numpy(dxi)) @ poses
+    pts0 = torch.from_numpy(pts + rng.normal(scale=0.05, size=pts.shape).astype(np.float32))
+    return ba.BAWindow(poses=poses0, points=pts0, obs_uv=uv, obs_mask=mask, K=K)
+
+
+@pytest.mark.parametrize("seed,n_fixed", [(0, 1), (1, 2), (2, 2)])
+def test_run_ba_on_cuda(cuda_device, seed, n_fixed):
+    """run_ba on the card (cuSOLVER for the dense camera system) against the
+    CPU (LAPACK): costs to 1e-3 relative, poses to 1e-3 and points to 5e-3 m,
+    the tolerances the CPU port is held to against the JAX package."""
+    from droplet_visual_odometry_tpu_torch.backend import ba
+
+    w = _ba_window(seed)
+    cfg = ba.BAConfig(n_fixed=n_fixed)
+    cpu = ba.run_ba(w, cfg)
+    gpu = ba.run_ba(ba.BAWindow(*(t.to(cuda_device) for t in w)), cfg)
+    assert float(gpu.final_cost) < float(gpu.initial_cost)
+    for f in ("initial_cost", "final_cost", "rms_px"):
+        np.testing.assert_allclose(float(getattr(gpu, f)), float(getattr(cpu, f)), rtol=1e-3)
+    np.testing.assert_allclose(gpu.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-3)
+    np.testing.assert_allclose(gpu.points.cpu().numpy(), cpu.points.numpy(), atol=5e-3)
+    assert torch.equal(gpu.poses[:n_fixed].cpu(), w.poses[:n_fixed])
+
+
+def _loop_sequence():
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(
+        n_frames=32, width=448, height=336, n_landmarks=350, orbit_sweep=0.6, dolly=0.5, loop=True, noise_std=1.5))
+    seq.marker_present[6:-6] = False
+    seq.marker_corners[6:-6] = np.nan
+    return seq
+
+
+def test_streamed_run_on_cuda_matches_in_memory(cuda_device, tmp_path):
+    """A streamed run on the card (chunks of 8 pairs through the page-locked
+    buffer, the last chunk padded) against the in-memory run of the same
+    frames: FAST and describe 4 launches per chunk, match counts within 2%
+    in total (the bf16 resize matmuls may sum in another order at another
+    batch size), and a run interrupted after its first chunk and resumed
+    equal to the uninterrupted streamed run bit for bit."""
+    from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
+    from droplet_visual_odometry_tpu_torch.utils import checkpoint
+
+    seq = _loop_sequence()
+    vo = VOConfig(scale_mode="hold", ransac=RansacConfig(n_hypotheses=128, lo_hypotheses=32))
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    streamed = pipeline.run_experiment(seq, vo, None, 0, stream=True, checkpoint_chunk=8)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (16, 16, 4)
+    mem = pipeline.run_experiment(seq, vo, None, 0, stream=False)
+    a, b = streamed.trajectory.n_matches, mem.trajectory.n_matches
+    print(f"n_matches equal on {int((a == b).sum())}/{len(a)} pairs")
+    assert np.abs(a - b).sum() <= 0.02 * b.sum()
+    assert np.isfinite(streamed.vo_abs).all() and streamed.trajectory.ok.all()
+
+    K = pipeline.effective_K(seq).astype(np.float32)
+    args = (seq.frames, pipeline.effective_marker_corners(seq, K), seq.marker_present,
+            np.asarray(seq.marker_poses[0], np.float32), K, seq.real_marker_length, vo)
+    kw = dict(path=str(tmp_path / "state.npz"), chunk=8, preprocess=pipeline.make_preprocessor(seq))
+
+    def stop(done, n):
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        checkpoint.run_sequence_checkpointed(*args, progress=stop, **kw)
+    resumed = checkpoint.run_sequence_checkpointed(*args, **kw)
+    for f in type(resumed)._fields:
+        assert np.array_equal(getattr(resumed, f), getattr(streamed.trajectory, f)), f
+
+
+def test_refine_trajectory_on_cuda(cuda_device):
+    """refine_trajectory (windowed BA) on the card with the CPU run's VO
+    outputs: FAST and describe once per level on the keyframe stack and the
+    match once (all consecutive keyframe pairs), the same keyframes, windows
+    and accepted windows as on the CPU, RMS to 1e-2 px and refined poses to
+    5e-3 (cuSOLVER against LAPACK, f32)."""
+    from droplet_visual_odometry_tpu_torch.backend import refine
+    from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
+
+    seq = _loop_sequence()
+    vo = VOConfig(scale_mode="hold", ransac=RansacConfig(n_hypotheses=128, lo_hypotheses=32))
+    base = pipeline.run_experiment(seq, vo, device="cpu")
+    K = np.asarray(seq.camera.K, np.float32)
+    args = (base.vo_abs, base.trajectory.n_inliers, K, refine.RefineConfig())
+    kw = dict(marker_corners=pipeline.effective_marker_corners(seq, K), real_marker_length=seq.real_marker_length)
+    frames = torch.from_numpy(seq.frames).float()
+    cpu, cpu_info = refine.refine_trajectory(frames, *args, **kw)
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    gpu, gpu_info = refine.refine_trajectory(frames.to(cuda_device), *args, **kw)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    accepted = lambda info: [r["accepted"] for r in info.get("window_corr", [])]
+    assert gpu_info["n_keyframes"] == cpu_info["n_keyframes"] and gpu_info["windows"] == cpu_info["windows"] >= 1
+    assert accepted(gpu_info) == accepted(cpu_info)
+    np.testing.assert_allclose(gpu_info["rms_px"], cpu_info["rms_px"], atol=1e-2)
+    np.testing.assert_allclose(gpu, cpu, atol=5e-3)

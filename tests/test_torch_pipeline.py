@@ -346,11 +346,31 @@ def test_pose_graph_defaults_to_cuda(seqs):
         tpipe.run_experiment(seqs[1], tvo.VOConfig(scale_mode="hold"), backend="pose_graph")
 
 
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [(dict(backend="pose_graph", stream=True), "A9"), (dict(backend="ba"), "A10"), (dict(stream=True), "A9"),
-     (dict(checkpoint_path="ck.npz"), "A9")],
-)
-def test_unported_paths_raise(seqs, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.run_experiment(seqs[1], tvo.VOConfig(), device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs", [dict(backend="ba"), dict(stream=True), dict(checkpoint_path="ck.npz")])
+def test_stream_and_ba_default_to_cuda(seqs, kwargs):
+    """Streaming, checkpoint/resume and backend="ba" called without a device
+    run on the card: here, without one, they raise rather than falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.run_experiment(seqs[1], tvo.VOConfig(scale_mode="hold"), **kwargs)
+
+
+def test_unknown_backend_raises(seqs):
+    with pytest.raises(ValueError, match="unknown backend"):
+        tpipe.run_experiment(seqs[1], tvo.VOConfig(), backend="bundle", device="cpu")
+
+
+def test_run_experiment_parameters_in_reference_order():
+    """The positional parameters of run_experiment are the reference's, in
+    its order and with its defaults (checkpoint_chunk=256 before stream);
+    the port adds only the keyword-only device."""
+    ref = inspect.signature(jpipe.run_experiment).parameters
+    port = inspect.signature(tpipe.run_experiment).parameters
+    positional = [n for n, p in port.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert positional == list(ref)
+    assert [n for n in port if n not in ref] == ["device"] and port["device"].kind == inspect.Parameter.KEYWORD_ONLY
+    for name in positional:
+        if ref[name].default is not inspect.Parameter.empty and name != "cfg":
+            assert port[name].default == ref[name].default, name
+    assert port["checkpoint_chunk"].default == 256

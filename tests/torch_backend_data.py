@@ -1,6 +1,7 @@
-"""Shared inputs of the port's backend tests (test_torch_backend.py,
-test_torch_loop_closure.py): a small marker-gap loop sequence, reduced
-budgets for the CPU suite, and the reference's verification draws."""
+"""Shared inputs of the port's backend and streaming tests
+(test_torch_backend.py, test_torch_loop_closure.py, test_torch_ba.py,
+test_torch_checkpoint.py): a small marker-gap loop sequence, reduced budgets
+for the CPU suite, and the reference's verification and per-chunk draws."""
 
 import dataclasses
 
@@ -38,3 +39,19 @@ def jax_verify_draws(n: int, n_hyp: int = LC_KW["verify_hypotheses"], n_lo: int 
     u_lo = np.stack([np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(k, r), (n_lo * 14,))) for r in (1, 2)])
                      for k in keys])
     return torch.from_numpy(u_hyp), torch.from_numpy(u_lo)
+
+
+def jax_chunk_draws(seed: int = 0, n_hyp: int = 384, n_lo: int = 128):
+    """The reference's per-pair draws of run_sequence_checkpointed as a
+    callable (start, n_pairs) -> (u_hyp, u_lo): each chunk's keys are
+    split(fold_in(PRNGKey(seed), start), n_pairs) (checkpoint.py:139,
+    vo.py:189), uniform(key) for the hypotheses and fold_in(key, 1) for the
+    LO round."""
+
+    def draws(start: int, n_pairs: int):
+        keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), start), n_pairs)
+        u_hyp = np.stack([np.asarray(jax.random.uniform(k, (n_hyp * 8,))) for k in keys])
+        u_lo = np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(k, 1), (n_lo * 14,))) for k in keys])
+        return torch.from_numpy(u_hyp), torch.from_numpy(u_lo)
+
+    return draws
