@@ -53,20 +53,38 @@ Phases (any failure raises, so the exit code is non-zero):
      chunk 256): the switch fired (2 chunks, the second padded), launch
      counters (FAST and describe 4 per chunk and 4 on the keyframe stack),
      the match counts against an in-memory run of the same frames and the
-     JAX package's total, a run interrupted after chunk 1 and resumed
-     against the uninterrupted one, the ATE against the JAX package's
+     JAX package's total, a run interrupted in chunk 2 (chunk 1 saved) and
+     resumed against the uninterrupted one, the ATE against the JAX package's
      streamed run; per-chunk walls and peak device memory, one chunk's
      store read, host-to-device copy and compute, the warm streamed VO
      frames/s, and the kernels at the chunk shapes against their twins;
-  8. with --profile only: each stage of run_sequence, pose_graph_trajectory
+  8. the float frontends (phase S): on the bench workload, run_sequence with
+     VOConfig(frontend=m, match_mode="ratio", dog_threshold=0.5) for m in
+     sift and surf: warm wall, frames/s, device idle share, launches of the
+     three kernels (none); on PARITY.md's clean scenario (60 frames at
+     640x480) run_experiment(backend="none"), its ATE and per-pair
+     ratio-match counts held to the JAX package's;
+  9. OnlineVO (phase O): the bench workload's 24 frames pushed with their
+     marker detections, ORB, VOConfig(): every push (one CUDA graph
+     replay) equal bit for bit to the same step run op by op, the launches
+     in the graph (4/4/1), match counts equal to run_sequence's on the same
+     frames and the final pose within ONLINE_POSE_TOL of its chain with the
+     same draws; median push ms as a graph and eager, the replay's device
+     span (CUDA events around graph.replay()) and the eager step's device
+     busy ms under torch.profiler, each push's idle share, the memory the
+     graph added; the kernels at the push's shapes (one frame's levels, the
+     match at P = 1) against their twins; then a SIFT engine's pushes
+     against its eager step;
+  10. with --profile only: each stage of run_sequence, pose_graph_trajectory
      and refine_trajectory timed alone (host clock, synchronised) and
      torch.profiler over warm runs of the first two (CUDA kernels per run,
      device busy ms, device idle share, the top kernels by device time and,
      for run_sequence, the top aten ops by count), printed as one JSON line
      {"profile": {...}}.
 Then one JSON line with the per-kernel results (`launches` from phase 7's
-run, `launches_by_path` from phases 4-7, each run with the counts set to 0
-just before it), and last the line {"ok": true, "device": {...}}.
+run, `launches_by_path` from phases 4-9, each run with the counts set to 0
+just before it; "online" per push, counted at the graph's capture), and
+last the line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a GPU, or without the rest of the
 repository beside it, it fails before printing any result.
@@ -82,6 +100,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -140,6 +159,33 @@ STREAM_CHUNK = 256
 JAX_STREAM_ATE_RMSE = 0.0029075
 STREAM_ATE_TOL = 0.0032
 JAX_STREAM_N_MATCHES = 124496
+
+# Phase S: the float frontends. PARITY.md's `clean` scenario (parity.py:
+# scenarios()["clean"]: 60 frames at 640x480) and the JAX package's
+# run_experiment(backend="none") with VOConfig(frontend=m, match_mode="ratio",
+# dog_threshold=0.5) (parity.py:run_ours, the "ours sift" / "ours surf"
+# rows), from
+#   JAX_PLATFORMS=cpu python tools/jax_float_frontend_figures.py --seeds 0 1 2 3
+# run on a CPU: ATE RMSE (m) over RANSAC seeds 0-3, SIFT 0.209324 / 0.217775 / 0.196381 / 0.192560,
+# SURF 0.172966 / 0.172313 / 0.159583 / 0.160401, and the per-pair ratio-match counts
+# (the same for every seed). Each ATE is held to seed 0's within twice the
+# seed-to-seed spread (max - min); the match counts within 2% in total.
+FLOAT_MODES = ("sift", "surf")
+CLEAN_SEQ_CONFIG = dict(n_frames=60, width=640, height=480)
+JAX_FLOAT_ATE_RMSE = {"sift": 0.209324, "surf": 0.172966}
+FLOAT_ATE_TOL = {"sift": 0.050431, "surf": 0.026765}
+JAX_FLOAT_N_MATCHES = {
+    "sift": [308, 315, 317, 322, 297, 314, 319, 277, 292, 309, 328, 314, 283, 289, 315, 292, 277, 301, 308, 283, 294, 297, 310, 318, 313, 322, 303, 301, 302, 287, 323, 310, 322, 325, 311, 315, 335, 316, 331, 323, 330, 316, 321, 325, 323, 313, 335, 336, 325, 327, 323, 303, 293, 306, 328, 312, 318, 325, 317],
+    "surf": [349, 355, 362, 374, 364, 362, 381, 340, 346, 353, 366, 362, 367, 358, 363, 351, 350, 338, 342, 348, 361, 375, 350, 355, 379, 365, 359, 329, 321, 325, 352, 349, 351, 358, 349, 349, 379, 378, 384, 362, 342, 344, 359, 353, 372, 368, 368, 362, 369, 359, 370, 367, 357, 371, 376, 368, 375, 377, 377],
+}
+
+# Phase O: OnlineVO on the bench workload. The graph-replayed push must equal
+# the same step run op by op bit for bit; the chained pose is held to
+# run_sequence's chain over the same frames with the same per-step draws
+# (run at P = 23 pairs instead of 1) within ONLINE_POSE_TOL, the C.2 bound on
+# chained absolute poses. Pushes timed: ONLINE_TIMED warm pushes each way.
+ONLINE_POSE_TOL = 1.2e-2
+ONLINE_TIMED = 20
 
 REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
@@ -532,7 +578,7 @@ def phase_end_to_end(seq):
     dt = (time.perf_counter() - t0) / reps
     log(f"run_sequence warm: {dt * 1e3:.2f} ms per {n}-frame sequence = {(n - 1) / dt:.2f} frames/s "
         f"(pairs per second, bench.py's definition)")
-    return launches
+    return launches, traj
 
 
 def phase_loop_data():
@@ -941,8 +987,9 @@ def streamed_run(seq, out_dir, ckpt, stop_after=None) -> tuple:
     """run_experiment(backend="pose_graph", stream=None) with a checkpoint
     path: it must take the streaming path. Spies on the chunk loop to time
     each chunk and read the card's peak memory after it; stop_after=k
-    raises Interrupted once k chunks are saved. Returns (result, per-chunk
-    records, the streaming call's keywords)."""
+    raises Interrupted from chunk k's progress call, which comes before that
+    chunk's save (as in the reference), so k - 1 chunks stay saved. Returns
+    (result, per-chunk records, the streaming call's keywords)."""
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
 
@@ -981,8 +1028,8 @@ def phase_stream(results) -> dict:
     run_experiment(backend="pose_graph", stream=None, a checkpoint path,
     chunk 256): 2 chunks, the second padded. Checks the switch, the launch
     counters, the match counts against an in-memory run of the same frames,
-    a run interrupted after chunk 1 and resumed against the uninterrupted
-    one, the ATE against the JAX package's streamed run; then each kernel
+    a run interrupted in chunk 2 (chunk 1 saved) and resumed against the
+    uninterrupted one, the ATE against the JAX package's streamed run; then each kernel
     at the chunk shapes against its twin, the anatomy of one chunk (store
     read into the page-locked buffer, host-to-device copy, compute) and the
     warm streamed VO rate."""
@@ -1037,10 +1084,10 @@ def phase_stream(results) -> dict:
             if info["n_loop_edges"] < 1 or not info["pg_final_cost"] < info["pg_initial_cost"]:
                 raise AssertionError("no loop edge, or the pose-graph cost did not fall")
 
-            # Interrupted after chunk 1, then resumed from its state file.
+            # Interrupted in chunk 2's progress call (chunk 1 saved, chunk 2 not), then resumed.
             ckpt2 = os.path.join(tmp, "state2.npz")
             try:
-                streamed_run(sseq, None, ckpt2, stop_after=1)
+                streamed_run(sseq, None, ckpt2, stop_after=2)
                 raise AssertionError("the interrupted run was not interrupted")
             except Interrupted:
                 pass
@@ -1123,6 +1170,231 @@ def phase_stream(results) -> dict:
     return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, wall_s=wall_s, chunks=chunks,
                 in_memory_s=mem_s, match_pairs_differ=differ, warm_ms=warm_ms, read_ms=read_ms, h2d_ms=h2d_ms,
                 compute_ms=compute_ms, resumed_pose_diff=pose_diff)
+
+
+def float_config(mode: str):
+    """parity.py:run_ours's configuration of the float-descriptor rows."""
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+
+    return VOConfig(frontend=mode, match_mode="ratio", dog_threshold=0.5)
+
+
+def phase_float(seq) -> dict:
+    """Phase S, the SIFT and SURF frontends: on the bench workload, a warm
+    run_sequence per mode (wall, frames/s, the device idle share under
+    torch.profiler, launches of the three kernels: none, the float path has
+    no kernel of its own); on PARITY.md's clean scenario,
+    run_experiment(backend="none") with the ATE and the per-pair ratio-match
+    counts held to the JAX package's."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.data import synthetic
+    from droplet_visual_odometry_tpu_torch.estimation.vo import run_sequence
+
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames)
+    K = pipeline.effective_K(seq)
+    corners = pipeline.effective_marker_corners(seq, K)
+    clean = synthetic.render_sequence(synthetic.SyntheticConfig(**CLEAN_SEQ_CONFIG))
+    out = {}
+    for mode in FLOAT_MODES:
+        cfg = float_config(mode)
+        args = (frames, corners, seq.marker_present, seq.marker_poses[0], K, seq.real_marker_length, cfg)
+        reset_launches()
+        traj = run_sequence(*args, seed=SEED)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"{mode}: the float path launched a kernel of the ORB path: {launches}")
+        if not torch.isfinite(traj.abs_poses).all() or float(traj.ok.float().mean()) < 0.9:
+            raise AssertionError(f"{mode}: non-finite poses or pairs ok {float(traj.ok.float().mean())}")
+        warm = wall_ms(lambda: run_sequence(*args, seed=SEED), reps=3)
+        prof, _ = device_profile(lambda: run_sequence(*args, seed=SEED), runs=2, top=5)
+        n = len(seq)
+        log(f"{mode} run_sequence on the bench workload warm: {warm:.2f} ms = {(n - 1) / warm * 1e3:.2f} frames/s; "
+            f"device busy {prof['device_busy_ms_per_run']:.2f} ms a run, {prof['kernels_per_run']:.0f} kernels, idle "
+            f"share {prof['device_idle_share']:.4f}; launches {launches}; n_matches {traj.n_matches.tolist()}")
+
+        with tempfile.TemporaryDirectory() as out_dir:
+            res = pipeline.run_experiment(clean, cfg, out_dir, SEED, backend="none", device="cuda")
+            check_run_outputs(res, out_dir, len(clean))
+        nm, want = res.trajectory.n_matches, np.asarray(JAX_FLOAT_N_MATCHES[mode])
+        dev = float(np.abs(nm - want).sum() / want.sum())
+        log(f"{mode} on the clean scenario: ATE rmse {res.ate.rmse!r} m (JAX package {JAX_FLOAT_ATE_RMSE[mode]} +- "
+            f"{FLOAT_ATE_TOL[mode]}); match counts vs JAX {int((nm == want).sum())}/{len(want)} pairs equal, total "
+            f"deviation {dev:.5f}; pairs ok {float(np.mean(res.trajectory.ok)):.4f}")
+        if abs(res.ate.rmse - JAX_FLOAT_ATE_RMSE[mode]) > FLOAT_ATE_TOL[mode]:
+            raise AssertionError(f"{mode} ATE {res.ate.rmse} outside {JAX_FLOAT_ATE_RMSE[mode]} +- {FLOAT_ATE_TOL[mode]}")
+        if dev > MATCH_TOL:
+            raise AssertionError(f"{mode} match counts deviate {dev:.4f} from the JAX package's")
+        out[mode] = dict(launches=launches, warm_ms=warm, frames_per_s=(n - 1) / warm * 1e3,
+                         device_busy_ms=prof["device_busy_ms_per_run"], kernels_per_run=prof["kernels_per_run"],
+                         device_idle_share=prof["device_idle_share"], clean_ate_rmse=res.ate.rmse,
+                         clean_match_deviation=dev, clean_pairs_equal=int((nm == want).sum()))
+    return out
+
+
+def marker_detections(seq, i):
+    """Frame i's marker as a 1-frame MarkerDetections of the port (camera frame: cTm)."""
+    from droplet_visual_odometry_tpu_torch import groundtruth
+    from droplet_visual_odometry_tpu_torch.core import se3
+
+    t, q = se3.to_translation_quaternion(torch.from_numpy(np.asarray(seq.marker_poses[i], np.float32)))
+    return groundtruth.detections_from_arrays(np.zeros((1, 1), np.int32), t.numpy()[None, None],
+                                              q.numpy()[None, None], np.asarray(seq.marker_corners[i])[None, None])
+
+
+def online_engine(seq, cfg):
+    from droplet_visual_odometry_tpu_torch import groundtruth, stream
+
+    return stream.OnlineVO(np.asarray(seq.camera.K), seq.real_marker_length, cfg=cfg, seed=SEED,
+                           gt_cfg=groundtruth.GroundTruthConfig(use_base_link=False), device="cuda")
+
+
+def check_online_pushes(seq, cfg, label: str, n_push: int) -> tuple:
+    """Arm an engine on frame 0, then push frames 1..n_push, each held bit
+    for bit against the same step run op by op (step_eager: the same
+    features and draws); returns (engine, the results of every push from
+    the arming one on, the memory the first armed push added: static
+    buffers and the graph's pool)."""
+    vo = online_engine(seq, cfg)
+    armed = vo.push(seq.timestamps[0], seq.frames[0], marker_detections(seq, 0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    results = [armed]
+    for i in range(1, n_push + 1):
+        dets = marker_detections(seq, i)
+        want = vo.step_eager(seq.frames[i], dets)
+        r = vo.push(seq.timestamps[i], seq.frames[i], dets)
+        if i == 1:  # the capture push; what stays reserved after empty_cache is the graph's pool and the buffers
+            torch.cuda.empty_cache()
+            mem = (torch.cuda.memory_allocated() - mem0[0], torch.cuda.memory_reserved() - mem0[1])
+        got = np.concatenate([r.rel.reshape(16), [r.n_inliers, float(r.ok), r.n_matches]]).astype(np.float32)
+        for name, sl in (("rel", slice(0, 16)), ("n_inliers", slice(16, 17)), ("ok", slice(17, 18)),
+                         ("n_matches", slice(18, 19))):
+            diff = np.abs(got[sl] - want.numpy()[sl])
+            if diff.max() > 0:
+                raise AssertionError(f"{label} push {i}: the graph's {name} differs from the eager step by "
+                                     f"{diff.max()!r}")
+        results.append(r)
+    log(f"{label}: {n_push} graph-replayed pushes equal to the eager step bit for bit (rel, n_inliers, ok, "
+        f"n_matches); launches in the graph {vo.captured_launches}")
+    return vo, results, mem
+
+
+def phase_online(seq, none_traj, kernels) -> dict:
+    """Phase O, OnlineVO: the bench workload's 24 frames pushed with their
+    marker detections (ORB, VOConfig()), every graph replay held against
+    the eager step bit for bit; match counts against run_sequence on the
+    same frames, the chained pose against its chain with the same per-step
+    draws; median push ms as a graph and eager, launches per push, the
+    replay's device span by CUDA events and the eager step's device busy
+    ms under torch.profiler, each push's idle share, the graph's memory;
+    the three kernels at the push's shapes against their twins; then one
+    SIFT engine's pushes against its eager step."""
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
+    from droplet_visual_odometry_tpu_torch.stream import step_seed
+
+    cfg = VOConfig()
+    n = len(seq)
+    reset_launches()
+    vo, results, mem = check_online_pushes(seq, cfg, "OnlineVO orb", n - 1)
+    armed_pose, results = results[0].pose, results[1:]
+    launches = dict(vo.captured_launches)
+    n_levels = cfg.n_levels
+    if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1}:
+        raise AssertionError(f"expected {n_levels}/{n_levels}/1 launches in the push graph, got {launches}")
+    nm = np.asarray([r.n_matches for r in results])
+
+    # run_sequence over the same raw frames with each push's draws.
+    rc = cfg.ransac
+    u_hyp, u_lo = [], []
+    for step in range(1, n):
+        g = torch.Generator(device="cuda").manual_seed(step_seed(SEED, step))
+        u_hyp.append(torch.rand((1, rc.n_hypotheses * rc.sample_size), generator=g, device="cuda"))
+        u_lo.append(torch.rand((1, 1, rc.lo_hypotheses * rc.lo_sample_size), generator=g, device="cuda"))
+    frames = torch.as_tensor(seq.frames).cuda().float()
+    traj = run_sequence(frames, seq.marker_corners, seq.marker_present, armed_pose, seq.camera.K,
+                        seq.real_marker_length, cfg, u_hyp=torch.cat(u_hyp), u_lo=torch.cat(u_lo))
+    nm_seq = traj.n_matches.cpu().numpy()
+    pose_diff = float(np.abs(results[-1].pose - traj.abs_poses[-1].cpu().numpy()).max())
+    log(f"OnlineVO n_matches {nm.tolist()}; run_sequence on the same frames: {int((nm == nm_seq).sum())}/{n - 1} "
+        f"pairs equal; phase 4's run (undistorted frames): {int((nm == none_traj.n_matches).sum())}/{n - 1} equal; "
+        f"final pose vs run_sequence's chain with the same draws: max abs difference {pose_diff:.3e} "
+        f"(tolerance {ONLINE_POSE_TOL})")
+    if not np.array_equal(nm, nm_seq):
+        raise AssertionError(f"OnlineVO match counts differ from run_sequence's on {int((nm != nm_seq).sum())} pairs")
+    if pose_diff > ONLINE_POSE_TOL:
+        raise AssertionError(f"OnlineVO final pose {pose_diff} from run_sequence's chain")
+
+    # Timing: a fresh engine, the capture push first, then warm pushes; eager steps on the same engine.
+    # The replay's device span: CUDA events on the push's stream around graph.replay() (torch.profiler
+    # traces graph replays incompletely). It counts the gaps between the graph's kernels as busy, so
+    # 1 - span / wall is a lower bound on a push's idle share.
+    vo = online_engine(seq, cfg)
+    vo.push(seq.timestamps[0], seq.frames[0], marker_detections(seq, 0))
+    vo.push(seq.timestamps[1], seq.frames[1], marker_detections(seq, 1))
+    order = [2 + i % (n - 2) for i in range(ONLINE_TIMED)]
+    dets = {i: marker_detections(seq, i) for i in set(order)}
+    graph, events = vo._graph, []
+
+    def timed_replay():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+
+    vo._graph = types.SimpleNamespace(replay=timed_replay)
+    push_ms, eager_ms = [], []
+    for i in order:
+        t0 = time.perf_counter()
+        vo.push(seq.timestamps[i], seq.frames[i], dets[i])
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    vo._graph = graph
+    torch.cuda.synchronize()
+    span_ms = [start.elapsed_time(end) for start, end in events]
+    for i in order:
+        t0 = time.perf_counter()
+        vo.step_eager(seq.frames[i], dets[i])
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    it = iter(order * 2)
+
+    def one_eager():
+        i = next(it)
+        vo.step_eager(seq.frames[i], dets[i])
+
+    prof_eager, _ = device_profile(one_eager, runs=10, top=8)
+    idle = {"graph": 1.0 - float(np.median(span_ms)) / float(np.median(push_ms)),
+            "eager": 1.0 - prof_eager["device_busy_ms_per_run"] / float(np.median(eager_ms))}
+    log(f"OnlineVO push at 1440x1080: graph {np.median(push_ms):.3f} ms median of {len(push_ms)} (min "
+        f"{min(push_ms):.3f}), eager step {np.median(eager_ms):.3f} ms median (min {min(eager_ms):.3f}); the "
+        f"replay's device span by CUDA events {np.median(span_ms):.3f} ms median (min {min(span_ms):.3f}, max "
+        f"{max(span_ms):.3f}); the eager step's device busy under torch.profiler "
+        f"{prof_eager['device_busy_ms_per_run']:.3f} ms, {prof_eager['kernels_per_run']:.0f} kernels; idle share "
+        f"of a push: graph at least {idle['graph']:.4f} (span against the wall), eager {idle['eager']:.4f}; the "
+        f"capture push left {mem[0] / 1e6:.1f} MB allocated and {mem[1] / 1e6:.1f} MB reserved after empty_cache "
+        f"(static buffers and the graph's pool)")
+
+    # The kernels at the push's shapes against their twins: FAST and describe on the next frame's
+    # levels, the match (P = 1) of the features the engine carries against that frame's.
+    i_next = 2 + ONLINE_TIMED % (n - 2)
+    fast_o, desc_o = frontend_levels(frames[i_next:i_next + 1], cfg.n_keypoints, "online push")
+    curr = detect_and_describe(frames[i_next], k=cfg.n_keypoints, threshold=cfg.fast_threshold,
+                               arc_length=cfg.fast_arc_length)
+    prev = vo._static["prev"]
+    kernels["fast_score"]["online_push"] = frontend_row(fast_o)
+    kernels["orb_describe"]["online_push"] = frontend_row(desc_o)
+    kernels["hamming_match"]["online_push"] = match_case("online push", prev.desc[None], curr.desc[None],
+                                                         prev.valid[None], curr.valid[None])
+
+    # One SIFT engine: capture and replay against its eager step.
+    check_online_pushes(seq, float_config("sift"), "OnlineVO sift", 3)
+    return dict(launches_per_push=launches, push_ms=float(np.median(push_ms)), eager_ms=float(np.median(eager_ms)),
+                push_ms_all=push_ms, eager_ms_all=eager_ms, replay_span_ms=float(np.median(span_ms)),
+                replay_span_ms_all=span_ms, profile_eager=prof_eager, idle_share=idle,
+                graph_mb_allocated=mem[0] / 1e6, graph_mb_reserved=mem[1] / 1e6, final_pose_diff=pose_diff,
+                n_matches=nm.tolist())
 
 
 def device_profile(call, runs: int, top: int) -> tuple[dict, list]:
@@ -1224,12 +1496,16 @@ def main() -> int:
     kind = phase_environment()
     seq = phase_data()
     kernels = phase_kernels(seq)
-    launches_none = phase_end_to_end(seq)
+    launches_none, none_traj = phase_end_to_end(seq)
     loop_seq = phase_loop_data()
     pg = phase_pose_graph(loop_seq, kernels)
     ba = phase_ba(loop_seq, kernels)
     stream = phase_stream(kernels)
     log(json.dumps({"stream": {k: v for k, v in stream.items() if k not in ("launches", "info")}}))
+    float_modes = phase_float(seq)
+    log(json.dumps({"float_frontends": float_modes}))
+    online = phase_online(seq, none_traj, kernels)
+    log(json.dumps({"online": online}))
     if opts.profile:
         prof = phase_profile(seq)
         prof["pose_graph"] = profile_pose_graph(loop_seq, pg)
@@ -1238,7 +1514,9 @@ def main() -> int:
     # `launches` counts the streamed run of the shipped default (run_experiment(backend="pose_graph") over
     # 400 frames at 1440x1080: VO chunk by chunk, then the keyframe stack, retrieval and verification);
     # launches_by_path gives each path's own run, the counts set to 0 just before it.
-    by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"]}
+    # "online" is per push: the launches captured in the push's graph, which every replay runs.
+    by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"],
+               "online": online["launches_per_push"], **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
     rows = [
         dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],
              launches_by_path={path: counts[name] for path, counts in by_path.items()}, library_ms=None)

@@ -1,8 +1,9 @@
 """Loop-closure detection: keyframe retrieval + geometric verification —
 port of droplet_visual_odometry_tpu/backend/loop_closure.py.
 
-  1. RETRIEVAL, two tiers: each keyframe's ORB set pools into one global
-     descriptor (the L2-normalised mean of its +-1 expanded bits); all pair
+  1. RETRIEVAL, two tiers: each keyframe's set pools into one global
+     descriptor (the L2-normalised mean of its +-1 expanded ORB bits, or of
+     its L2-normalised SIFT/SURF vectors); all pair
      similarities are one (Nk, 256) @ (256, Nk) f32 product, and the top
      `shortlist` pairs with gap >= min_gap go on to the pairwise count of
      mutual-best matches under a Hamming gate: one `matcher.match` call over
@@ -70,13 +71,15 @@ def _pair_list(n_kf: int, min_gap: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def global_descriptors(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(Nk, K, 8) packed ORB sets + (Nk, K) masks -> (Nk, 256) L2-normalised
-    bag-of-bits descriptors. The +-1 sums are integers, exact in f32."""
+    """(Nk, K, ...) descriptor sets + (Nk, K) masks -> (Nk, D) L2-normalised
+    global descriptors: bag-of-bits pooling of packed ORB words (D = 256;
+    the +-1 sums are integers, exact in f32), or the mean of the
+    L2-normalised vectors of float SIFT/SURF sets."""
     if desc.is_floating_point():
-        raise NotImplementedError(
-            "global descriptors of float (SIFT/SURF) sets are not ported yet (ROADMAP A12)"
-        )
-    d = unpack_bits_pm1(desc, torch.float32)  # (Nk, K, 256)
+        d = desc.to(torch.float32)
+        d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True), min=1e-9)
+    else:
+        d = unpack_bits_pm1(desc, torch.float32)  # (Nk, K, 256)
     w = valid.to(torch.float32)
     g = torch.sum(d * w[..., None], dim=1) / torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1.0)
     return g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-9)

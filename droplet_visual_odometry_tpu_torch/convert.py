@@ -18,6 +18,7 @@ from droplet_visual_odometry_tpu_torch.backend.refine import PoseGraphRefineConf
 from droplet_visual_odometry_tpu_torch.core.camera import Camera
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+from droplet_visual_odometry_tpu_torch.groundtruth import GroundTruthConfig, MarkerDetections, detections_from_arrays
 from droplet_visual_odometry_tpu_torch.utils.config import ExperimentConfig
 
 
@@ -79,3 +80,14 @@ def camera_from_arrays(K, dist, width: int, height: int) -> Camera:
         width=int(width),
         height=int(height),
     )
+
+
+def gt_config_from_jax(d: dict) -> GroundTruthConfig:
+    """The port's GroundTruthConfig from `dataclasses.asdict` of the reference's."""
+    return GroundTruthConfig(**{k: tuple(v) if isinstance(v, (list, tuple)) else v for k, v in d.items()})
+
+
+def detections_from_jax(dets) -> MarkerDetections:
+    """The port's MarkerDetections from the reference's (ids, translations,
+    quaternions, corners), each converted with np.asarray."""
+    return detections_from_arrays(*(np.asarray(a) for a in dets))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from droplet_visual_odometry_tpu_torch.utils.device import constant
+
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """xyzw quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
@@ -64,7 +66,7 @@ def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), top.dtype, top.device)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 
@@ -219,3 +221,11 @@ def ad(xi: torch.Tensor) -> torch.Tensor:
     top = torch.cat([wx, vx], dim=-1)
     bot = torch.cat([torch.zeros_like(wx), wx], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def compose(*Ts: torch.Tensor) -> torch.Tensor:
+    """Chain 4x4 transforms left to right: compose(A, B, C) = A @ B @ C."""
+    out = Ts[0]
+    for T in Ts[1:]:
+        out = out @ T
+    return out

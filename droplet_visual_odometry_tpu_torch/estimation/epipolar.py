@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from droplet_visual_odometry_tpu_torch.ops import linalg as fast_linalg
+from droplet_visual_odometry_tpu_torch.utils.device import constant
 
 
 def to_normalized(pts_px: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -70,7 +71,7 @@ def essential_8point(
 def project_to_essential(E: torch.Tensor) -> torch.Tensor:
     """Nearest essential matrix: singular values -> (1, 1, 0)."""
     U, S, Vt = fast_linalg.svd3x3(E)
-    d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    d = constant((1.0, 1.0, 0.0), E.dtype, E.device)
     return U @ (d[:, None] * Vt)
 
 
@@ -102,7 +103,7 @@ def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     U, _, Vt = fast_linalg.svd3x3(E)
     U = U * torch.sign(det3(U))[..., None, None]
     Vt = Vt * torch.sign(det3(Vt))[..., None, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype, device=E.device)
+    W = constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)), E.dtype, E.device)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[..., :, 2]

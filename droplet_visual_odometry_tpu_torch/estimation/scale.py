@@ -16,6 +16,7 @@ from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.estimation.epipolar import det3
 from droplet_visual_odometry_tpu_torch.estimation.triangulate import dehomogenize, triangulate_points
 from droplet_visual_odometry_tpu_torch.ops import linalg as fast_linalg
+from droplet_visual_odometry_tpu_torch.utils.device import constant
 
 
 def marker_side_length(
@@ -46,7 +47,7 @@ def marker_side_length(
 def canonical_corners(L, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Marker corners in the marker frame, (4, 3), in the synthetic/STag winding."""
     s = L / 2.0
-    return torch.tensor([[-s, -s, 0.0], [s, -s, 0.0], [s, s, 0.0], [-s, s, 0.0]], dtype=dtype, device=device)
+    return constant(((-s, -s, 0.0), (s, -s, 0.0), (s, s, 0.0), (-s, s, 0.0)), dtype, torch.device(device))
 
 
 def square_pnp(corners_px: torch.Tensor, K: torch.Tensor, L: float) -> torch.Tensor:
@@ -76,7 +77,7 @@ def square_pnp(corners_px: torch.Tensor, K: torch.Tensor, L: float) -> torch.Ten
     U, _, Vt = fast_linalg.svd3x3(R_raw)
     R = U @ Vt
     R = R * torch.sign(det3(R))[..., None, None]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=dev).expand(R.shape[:-2] + (1, 4))
+    bottom = constant((0.0, 0.0, 0.0, 1.0), dtype, dev).expand(R.shape[:-2] + (1, 4))
     return torch.cat([torch.cat([R, t[..., :, None]], dim=-1), bottom], dim=-2)
 
 

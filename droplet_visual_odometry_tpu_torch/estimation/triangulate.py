@@ -1,13 +1,17 @@
 """Projection-matrix DLT triangulation (cv.triangulatePoints parity) — port of
 droplet_visual_odometry_tpu/estimation/triangulate.py, batched over leading dims.
 
-Like the reference, it takes the eigenvector of the 4x4 normal matrix from
-the library eigensolver (jnp.linalg.eigh there, torch.linalg.eigh here).
+The reference takes the eigenvector of the 4x4 normal matrix from the
+library eigensolver (jnp.linalg.eigh). torch.linalg.eigh synchronizes the
+card with the host, which a CUDA graph cannot hold, so the port finds the
+same eigenvector by fixed Jacobi sweeps (ops/linalg.sym_smallest_eigvec).
 """
 
 from __future__ import annotations
 
 import torch
+
+from droplet_visual_odometry_tpu_torch.ops import linalg as fast_linalg
 
 
 def triangulate_points(
@@ -22,8 +26,7 @@ def triangulate_points(
 
     A = torch.cat([rows(P1, pts1_px), rows(P2, pts2_px)], dim=-2)  # (..., N, 4, 4)
     A = A / torch.clamp(torch.linalg.vector_norm(A, dim=-1, keepdim=True), min=1e-12)
-    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
-    return vecs[..., :, 0]
+    return fast_linalg.sym_smallest_eigvec(A.transpose(-1, -2) @ A)
 
 
 def dehomogenize(Xh: torch.Tensor) -> torch.Tensor:

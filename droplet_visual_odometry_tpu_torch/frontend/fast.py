@@ -65,6 +65,17 @@ def subpixel_refine(score_map: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return xy + off
 
 
+def select_topk(score_map: torch.Tensor, k: int) -> Keypoints:
+    """Flat top-k of (..., H, W) NMS'd score maps, ties to the lower flat
+    index as jax.lax.top_k: a stable descending sort."""
+    h, w = score_map.shape[-2], score_map.shape[-1]
+    flat = score_map.reshape(score_map.shape[:-2] + (h * w,))
+    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    xy = torch.stack([(idx % w).to(torch.float32), (idx // w).to(torch.float32)], dim=-1)
+    return Keypoints(xy=xy, score=vals, valid=vals > 0.0)
+
+
 def select_topk_rows(score_map: torch.Tensor, k: int, per_row: int | None = None) -> Keypoints:
     """Row-bucketed top-k of (..., H, W) NMS'd score maps: the strongest
     `per_row` corners of every row, then a global top-k over H * per_row

@@ -1,5 +1,6 @@
 """Per-frame multi-scale detect + orient + describe — port of
-droplet_visual_odometry_tpu/frontend/features.py (ORB mode).
+droplet_visual_odometry_tpu/frontend/features.py: the ORB pyramid below, and
+the mode switch to the SIFT and SURF frontends (frontend/sift.py, surf.py).
 
 Each pyramid level is an antialiased bf16 resize of the previous one; on
 every level the FAST score (kernel 1) runs once over the whole batch of
@@ -77,11 +78,23 @@ def detect_and_describe_batch(
     scale_factor: float = SCALE_FACTOR,
 ) -> Features:
     """(N, H, W) frames -> Features with a leading N axis and K = k keypoints
-    per frame over all pyramid levels (coordinates in level-0 pixels)."""
-    if mode in ("sift", "surf"):
-        raise NotImplementedError(
-            f"frontend {mode!r} is not ported yet (ROADMAP A12: frontend/sift.py, frontend/surf.py)"
-        )
+    per frame over all pyramid levels (coordinates in level-0 pixels).
+
+    mode selects the frontend family (the reference's mode switch):
+    'orb' — FAST + 256-bit binary descriptors (Hamming matching);
+    'sift' — DoG blobs + 128-d float gradient histograms (frontend/sift.py);
+    'surf' — Hessian blobs + 64-d gradient descriptors (frontend/surf.py).
+    The float frontends take k, dog_threshold and their own octave pyramid,
+    not the ORB pyramid's n_levels and scale_factor, as in the reference.
+    """
+    if mode == "sift":
+        from droplet_visual_odometry_tpu_torch.frontend import sift
+
+        return sift.detect_and_describe(imgs, k=k, threshold=dog_threshold)
+    if mode == "surf":
+        from droplet_visual_odometry_tpu_torch.frontend import surf
+
+        return surf.detect_and_describe(imgs, k=k, threshold=dog_threshold)
     if mode != "orb":
         raise ValueError(f"unknown frontend mode: {mode}")
 
@@ -98,3 +111,21 @@ def detect_and_describe_batch(
     if n_levels == 1:
         return parts[0]
     return Features(*(torch.cat(xs, dim=1) for xs in zip(*parts)))
+
+
+def detect_and_describe(
+    img: torch.Tensor,
+    k: int = 512,
+    threshold: float = 20.0,
+    arc_length: int = 9,
+    mode: str = "orb",
+    dog_threshold: float = 1.0,
+    n_levels: int = N_LEVELS,
+    scale_factor: float = SCALE_FACTOR,
+) -> Features:
+    """(H, W) frame -> fixed-K Features: the batch path on one frame."""
+    feats = detect_and_describe_batch(
+        img[None], k=k, threshold=threshold, arc_length=arc_length, mode=mode,
+        dog_threshold=dog_threshold, n_levels=n_levels, scale_factor=scale_factor,
+    )
+    return Features(*(a[0] for a in feats))

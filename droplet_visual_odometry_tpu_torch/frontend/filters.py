@@ -1,5 +1,5 @@
-"""Separable Gaussian blur and antialiased resize — port of
-droplet_visual_odometry_tpu/frontend/filters.py.
+"""Separable Gaussian blur, antialiased resize and the 2x pyramid step —
+port of droplet_visual_odometry_tpu/frontend/filters.py.
 
 Both stay plain torch: the reference computes them in XLA, outside any Pallas
 kernel. Their bf16 roundings follow the reference's dtypes (see each function).
@@ -12,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from droplet_visual_odometry_tpu_torch.utils.device import constant
 
 
 @functools.lru_cache(maxsize=32)
@@ -62,8 +64,7 @@ def gaussian_blur(
         radius = max(1, int(3.0 * sigma + 0.5))
     in_dtype = img.dtype
     x = img if compute_dtype is None else img.to(compute_dtype)
-    taps = torch.tensor(_gaussian_taps(float(sigma), radius), dtype=torch.float32, device=img.device)
-    taps = taps.to(x.dtype)
+    taps = constant(_gaussian_taps(float(sigma), radius), torch.float32, img.device).to(x.dtype)
     x = _blur_pass(x, taps, x.dim() - 2)
     return _blur_pass(x, taps, x.dim() - 1, last_add_dtype=in_dtype).to(in_dtype)
 
@@ -91,10 +92,23 @@ def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """
     h, w = img.shape[-2], img.shape[-1]
 
-    def bf16_f32(a):
-        return a.to(torch.bfloat16).to(torch.float32)
+    Wh = _resize_weights_bf16(h, new_h, img.device)
+    Ww = _resize_weights_bf16(w, new_w, img.device)
+    t = torch.matmul(Wh.T, _bf16_f32(img))  # (..., new_h, W)
+    return torch.matmul(_bf16_f32(t), Ww)  # (..., new_h, new_w)
 
-    Wh = bf16_f32(torch.from_numpy(_resize_weights(h, new_h)).to(img.device))
-    Ww = bf16_f32(torch.from_numpy(_resize_weights(w, new_w)).to(img.device))
-    t = torch.matmul(Wh.T, bf16_f32(img))  # (..., new_h, W)
-    return torch.matmul(bf16_f32(t), Ww)  # (..., new_h, new_w)
+
+def _bf16_f32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights_bf16(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """`_resize_weights` rounded to bf16, as f32 on `device`, built once and
+    kept: a captured CUDA graph reads it by address on every replay."""
+    return _bf16_f32(torch.from_numpy(_resize_weights(n_in, n_out)).to(device))
+
+
+def downsample2(img: torch.Tensor) -> torch.Tensor:
+    """f32 sigma=1 radius-2 blur, then 2x decimation of (..., H, W)."""
+    return gaussian_blur(img, sigma=1.0, radius=2)[..., ::2, ::2]

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from droplet_visual_odometry_tpu_torch.utils.device import constant
+
 from droplet_visual_odometry_tpu_torch.ops.cuda_describe import (  # noqa: F401 (re-exports)
     _PAIRS,
     _PATTERN,
@@ -30,6 +32,7 @@ from droplet_visual_odometry_tpu_torch.ops.cuda_describe import (  # noqa: F401 
     _build_steer_weights,
     _make_pattern,
     describe_cuda,
+    extract_patches_plain,
     pack_bits,
 )
 from droplet_visual_odometry_tpu_torch.ops.cuda_match import N_BITS, unpack_bits_pm1  # noqa: F401 (re-export)
@@ -50,8 +53,7 @@ def patch_origins(xy: torch.Tensor, h: int, w: int) -> torch.Tensor:
     centred on the integer-rounded keypoint and clamped into the image."""
     n, k = xy.shape[0], xy.shape[1]
     ij = torch.round(torch.stack([xy[..., 1], xy[..., 0]], dim=-1)).to(torch.int32) - HALF
-    hi = torch.tensor([h - PATCH, w - PATCH], dtype=torch.int32, device=xy.device)
-    ij = torch.minimum(torch.clamp(ij, min=0), hi)
+    ij = torch.stack([ij[..., 0].clamp(0, h - PATCH), ij[..., 1].clamp(0, w - PATCH)], dim=-1)
     fidx = torch.arange(n, dtype=torch.int32, device=xy.device)[:, None].expand(n, k)
     return torch.cat([fidx.reshape(n * k, 1), ij.reshape(n * k, 2)], dim=-1).contiguous()
 
@@ -63,3 +65,23 @@ def describe_batch(imgs_blur: torch.Tensor, xy: torch.Tensor) -> tuple[torch.Ten
     k = xy.shape[1]
     desc, ang = describe_cuda(imgs_blur.to(torch.float32).contiguous(), patch_origins(xy, h, w))
     return desc.reshape(n, k, N_WORDS), ang.reshape(n, k)
+
+
+def extract_patches(imgs: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) images + (N, K, 2) keypoints -> (N, K, 37, 37) float32 patches
+    centred on the integer-rounded keypoints, clamped into the image (the
+    reference's plain vmap(dynamic_slice) gather, as one index gather)."""
+    n, h, w = imgs.shape
+    k = xy.shape[1]
+    return extract_patches_plain(imgs, patch_origins(xy, h, w)).reshape(n, k, PATCH, PATCH)
+
+
+def orientation(patches: torch.Tensor) -> torch.Tensor:
+    """(..., 37, 37) float32 patches -> (...,) intensity-centroid angles
+    atan2(m01, m10) over the centred disc, in f32."""
+    d = constant(tuple(float(i - HALF) for i in range(PATCH)), torch.float32, patches.device)
+    yy, xx = d[:, None], d[None, :]
+    disc = (yy * yy + xx * xx) <= (HALF * HALF)
+    m01 = torch.sum(patches * torch.where(disc, yy, 0.0), dim=(-2, -1))
+    m10 = torch.sum(patches * torch.where(disc, xx, 0.0), dim=(-2, -1))
+    return torch.atan2(m01, m10)

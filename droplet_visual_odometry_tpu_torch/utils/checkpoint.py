@@ -106,8 +106,10 @@ def run_sequence_checkpointed(
         start = int(state["next_start"])
         acc = {f: [state[f]] for f in _FIELDS}
         abs_last = state["abs_last"]
-        scale_last = float(state["scale_last"])
-        scale_seen = bool(state["scale_seen"])
+        # State files written before the scale carry existed lack these two
+        # entries: the reference's defaults.
+        scale_last = float(state.get("scale_last", 1.0))
+        scale_seen = bool(state.get("scale_seen", False))
     else:
         start = 1  # the current frame of the next pair
         acc = {f: [] for f in _FIELDS}
@@ -146,6 +148,10 @@ def run_sequence_checkpointed(
         scale_last = float(traj.scales[n_pairs - 1])
         scale_seen = scale_seen or bool(np.any(traj.scale_ok[:n_pairs]))
         start = stop
+        # progress before the save, as in the reference: an exception in the
+        # callback leaves this chunk unsaved, and a resume recomputes it.
+        if progress is not None:
+            progress(stop, n)
         if path:
             save_state(path, {
                 "n_total": np.asarray(n),
@@ -156,8 +162,6 @@ def run_sequence_checkpointed(
                 "scale_seen": np.asarray(scale_seen),
                 **{f: np.concatenate(acc[f], axis=0) for f in _FIELDS},
             })
-        if progress is not None:  # after the save: an exception here resumes after this chunk
-            progress(stop, n)
 
     out = {f: np.concatenate(acc[f], axis=0) for f in _FIELDS}
     out["abs_poses"] = np.concatenate([np.asarray(init_pose, np.float32)[None], out["abs_poses"]], axis=0)

@@ -5,6 +5,8 @@ back)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -13,3 +15,11 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor, built once per (values, dtype, device) and
+    kept: a step that a CUDA graph captures must not copy from the host, and
+    an eager step then skips the copy too. Callers never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

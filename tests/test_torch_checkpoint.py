@@ -23,6 +23,7 @@ from droplet_visual_odometry_tpu.data import native_store as jstore
 from droplet_visual_odometry_tpu.data import synthetic as jsynth
 from droplet_visual_odometry_tpu.estimation import vo as jvo
 from droplet_visual_odometry_tpu.eval import tum as jtum
+from droplet_visual_odometry_tpu.utils import checkpoint as jck
 
 from droplet_visual_odometry_tpu_torch import pipeline as tpipe
 from droplet_visual_odometry_tpu_torch.data import native_store as tstore
@@ -163,6 +164,60 @@ def test_streamed_run_experiment_matches_reference(seqs, jax_stream, tmp_path):
     assert int(st["next_start"]) == len(seqs[1]) and int(st["chunk"]) == CHUNK
 
 
+def _stop_at_chunk_2(done, n):
+    """A progress callback that raises at the second chunk (pairs 5-8)."""
+    if done > CHUNK + 1:
+        raise KeyboardInterrupt
+
+
+def _reference_state_after_chunk_1(seq, path):
+    """The reference's run_sequence_checkpointed interrupted by a progress
+    callback at chunk 2: its state file at `path`."""
+    args = list(_ckpt_args(seq))
+    args[1] = np.nan_to_num(args[1])
+    with pytest.raises(KeyboardInterrupt):
+        jck.run_sequence_checkpointed(jax.random.PRNGKey(0), *args, jvo.VOConfig(**HOLD), path=path, chunk=CHUNK,
+                                      progress=_stop_at_chunk_2)
+    return args
+
+
+def test_raising_progress_leaves_the_reference_state(seqs, jax_stream, tmp_path):
+    """progress(stop, n) comes before the chunk's save, as in the reference:
+    a callback that raises at chunk 2 leaves chunk 1 saved in both packages,
+    with the same next_start (5), the same entries (but the reference's
+    threefry key) and the same match counts."""
+    jp, tp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    _reference_state_after_chunk_1(seqs[0], jp)
+    with pytest.raises(KeyboardInterrupt):
+        tck.run_sequence_checkpointed(*_ckpt_args(seqs[1]), tvo.VOConfig(**HOLD), path=tp, chunk=CHUNK,
+                                      progress=_stop_at_chunk_2, draws=jax_chunk_draws(0), device="cpu")
+    js, ts = jck.load_state(jp), tck.load_state(tp)
+    assert int(ts["next_start"]) == int(js["next_start"]) == CHUNK + 1
+    assert sorted(ts) == sorted(k for k in js if k != "key")  # the port seeds chunks, it keeps no threefry key
+    np.testing.assert_array_equal(ts["n_matches"], js["n_matches"])
+
+
+def test_state_without_scale_carry_resumes_as_the_reference(seqs, jax_stream, tmp_path):
+    """A state file without scale_last and scale_seen (written before the
+    'hold' carry existed) resumes with the reference's defaults, 1.0 and
+    False: the held pairs 5-7 of the resumed chunk apply 1.0 in both
+    packages (with the carry they would hold pair 2's live scale), the match
+    counts are equal and the applied scales agree to 5e-3."""
+    jp, tp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    args = _reference_state_after_chunk_1(seqs[0], jp)
+    old = {k: v for k, v in jck.load_state(jp).items() if k not in ("scale_last", "scale_seen")}
+    for p in (jp, tp):
+        tck.save_state(p, old)
+    ref = jck.run_sequence_checkpointed(jax.random.PRNGKey(0), *args, jvo.VOConfig(**HOLD), path=jp, chunk=CHUNK)
+    out = tck.run_sequence_checkpointed(*_ckpt_args(seqs[1]), tvo.VOConfig(**HOLD), path=tp, chunk=CHUNK,
+                                        draws=jax_chunk_draws(0), device="cpu")
+    print(f"scales port {out.scales.tolist()} reference {np.asarray(ref.scales).tolist()}")
+    np.testing.assert_array_equal(out.n_matches, np.asarray(ref.n_matches))
+    np.testing.assert_array_equal(out.scales[4:7], np.ones(3, np.float32))
+    np.testing.assert_array_equal(out.scales[4:7], np.asarray(ref.scales)[4:7])
+    np.testing.assert_allclose(out.scales, np.asarray(ref.scales), atol=5e-3)
+
+
 # --------------------------------------------------------------------------
 # Checkpoint mechanics (port only, tiny sequences)
 # --------------------------------------------------------------------------
@@ -190,9 +245,11 @@ def test_save_state_is_atomic(tmp_path):
 
 @pytest.mark.parametrize("interrupt", ["progress", "save"])
 def test_resume_equals_uninterrupted(tmp_path, monkeypatch, interrupt):
-    """Interrupted after the first chunk of 3 pairs (by a progress callback
-    that raises, or inside the state write after the rename), then resumed:
-    bit for bit the uninterrupted run, with the port's own seeded draws."""
+    """Interrupted after the first chunk of 3 pairs is saved (by a progress
+    callback that raises at the second chunk, before that chunk's save, as
+    the reference orders them; or inside the first state write after the
+    rename), then resumed: bit for bit the uninterrupted run, with the
+    port's own seeded draws."""
     args = _tiny()
     full = tck.run_sequence_checkpointed(*args, TINY_CFG, path=str(tmp_path / "full.npz"), chunk=3, device="cpu")
     assert full.abs_poses.shape == (7, 4, 4)
@@ -200,7 +257,8 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch, interrupt):
     kw = dict(path=p, chunk=3, device="cpu")
     if interrupt == "progress":
         def stop(done, n):
-            raise KeyboardInterrupt
+            if done > 4:
+                raise KeyboardInterrupt
 
         with pytest.raises(KeyboardInterrupt):
             tck.run_sequence_checkpointed(*args, TINY_CFG, progress=stop, **kw)

@@ -432,11 +432,13 @@ def test_streamed_run_on_cuda_matches_in_memory(cuda_device, tmp_path):
             np.asarray(seq.marker_poses[0], np.float32), K, seq.real_marker_length, vo)
     kw = dict(path=str(tmp_path / "state.npz"), chunk=8, preprocess=pipeline.make_preprocessor(seq))
 
-    def stop(done, n):
-        raise KeyboardInterrupt
+    def stop(done, n):  # at the second chunk, before its save: chunk 1 stays saved
+        if done > 9:
+            raise KeyboardInterrupt
 
     with pytest.raises(KeyboardInterrupt):
         checkpoint.run_sequence_checkpointed(*args, progress=stop, **kw)
+    assert int(checkpoint.load_state(kw["path"])["next_start"]) == 9
     resumed = checkpoint.run_sequence_checkpointed(*args, **kw)
     for f in type(resumed)._fields:
         assert np.array_equal(getattr(resumed, f), getattr(streamed.trajectory, f)), f
@@ -468,3 +470,100 @@ def test_refine_trajectory_on_cuda(cuda_device):
     assert accepted(gpu_info) == accepted(cpu_info)
     np.testing.assert_allclose(gpu_info["rms_px"], cpu_info["rms_px"], atol=1e-2)
     np.testing.assert_allclose(gpu, cpu, atol=5e-3)
+
+
+@pytest.mark.parametrize("ka,kb", [(300, 512), (512, 300)])
+@pytest.mark.parametrize("mode", ["crosscheck", "ratio"])
+def test_match_unequal_counts_on_cuda(cuda_device, ka, kb, mode):
+    """matcher.match on (P, Ka) against (P, Kb) sets: the smaller padded with
+    invalid entries and sent to the kernel (one launch), equal to the same
+    call on the CPU (the plain twin) in every output."""
+    from droplet_visual_odometry_tpu_torch.frontend import matcher
+
+    g = torch.Generator().manual_seed(ka + kb)
+    da = torch.randint(-2**31, 2**31 - 1, (3, ka, 8), generator=g, dtype=torch.int64).to(torch.int32)
+    db = torch.randint(-2**31, 2**31 - 1, (3, kb, 8), generator=g, dtype=torch.int64).to(torch.int32)
+    va, vb = torch.rand((3, ka), generator=g) > 0.2, torch.rand((3, kb), generator=g) > 0.2
+    vb[2] = False
+    cpu = matcher.match(da, db, va, vb, mode=mode)
+    cuda_match.LAUNCHES = 0
+    gpu = matcher.match(*(t.to(cuda_device) for t in (da, db, va, vb)), mode=mode)
+    assert cuda_match.LAUNCHES == 1
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert int(gpu.idx.max()) < kb
+
+
+def _stream_sequence():
+    return synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=8, width=640, height=480, n_landmarks=350))
+
+
+def _stream_detections(seq, i):
+    """Frame i's marker as a 1-frame MarkerDetections (camera frame: cTm)."""
+    from droplet_visual_odometry_tpu_torch import groundtruth
+    from droplet_visual_odometry_tpu_torch.core import se3
+
+    t, q = se3.to_translation_quaternion(torch.from_numpy(np.asarray(seq.marker_poses[i], np.float32)))
+    return groundtruth.detections_from_arrays(np.zeros((1, 1), np.int32), t.numpy()[None, None],
+                                              q.numpy()[None, None], seq.marker_corners[i][None, None])
+
+
+@pytest.mark.parametrize("frontend", ["orb", "sift"])
+def test_online_vo_graph_replay_equals_eager(cuda_device, frontend):
+    """OnlineVO on the card captures its push as one CUDA graph at the first
+    armed push and replays it: every push's (rel, n_inliers, ok) equals the
+    same step run op by op (step_eager, the same features and draws) bit
+    for bit; in ORB mode the graph holds one FAST and one describe launch
+    per level and one match (captured_launches), the first armed push
+    counts its warm-up run's and its capture's, and replays tick no counter."""
+    from droplet_visual_odometry_tpu_torch import groundtruth, stream
+
+    seq = _stream_sequence()
+    cfg = VOConfig() if frontend == "orb" else VOConfig(frontend="sift", match_mode="ratio", dog_threshold=0.5)
+    vo = stream.OnlineVO(np.asarray(seq.camera.K), seq.real_marker_length, cfg=cfg,
+                         gt_cfg=groundtruth.GroundTruthConfig(use_base_link=False))
+    dets = lambda i: _stream_detections(seq, i)
+    vo.push(seq.timestamps[0], seq.frames[0], dets(0))
+    counts = []
+    for i in range(1, len(seq)):
+        want = vo.step_eager(seq.frames[i], dets(i))
+        for mod in (cuda_fast, cuda_describe, cuda_match):
+            mod.LAUNCHES = 0
+        r = vo.push(seq.timestamps[i], seq.frames[i], dets(i))
+        counts.append((cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES))
+        assert np.array_equal(want[:16].numpy().reshape(4, 4), r.rel), i
+        assert (int(want[16]), bool(want[17])) == (r.n_inliers, r.ok), i
+        assert r.ok
+    n_levels = VOConfig().n_levels
+    if frontend == "orb":
+        assert vo.captured_launches == {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1}
+        assert counts[0] == (2 * n_levels, 2 * n_levels, 2) and set(counts[1:]) == {(0, 0, 0)}
+    gt = np.linalg.inv(np.asarray(seq.marker_poses[-1], np.float64))[:3, 3]
+    assert np.linalg.norm(np.linalg.inv(vo.pose.astype(np.float64))[:3, 3] - gt) < 0.25
+
+
+def test_online_vo_replay_survives_constant_cache_churn(cuda_device):
+    """A captured push reads the per-device constants (the resize weights,
+    blur taps, tables) by address on every replay, so they must outlive any
+    other use of their caches: after 100 other resize shapes on the card and
+    the allocator's free memory filled with garbage, every replay still
+    equals the eager step bit for bit."""
+    from droplet_visual_odometry_tpu_torch import groundtruth, stream
+    from droplet_visual_odometry_tpu_torch.frontend import filters
+
+    seq = _stream_sequence()
+    vo = stream.OnlineVO(np.asarray(seq.camera.K), seq.real_marker_length,
+                         gt_cfg=groundtruth.GroundTruthConfig(use_base_link=False))
+    vo.push(seq.timestamps[0], seq.frames[0], _stream_detections(seq, 0))
+    vo.push(seq.timestamps[1], seq.frames[1], _stream_detections(seq, 1))  # the capture
+    for n in range(100):
+        filters.resize_bilinear(torch.ones((1, 300 + n, 200 + n), device=cuda_device), 150 + n, 100 + n)
+    shapes = features.level_shapes(480, 640, features.N_LEVELS, features.SCALE_FACTOR)
+    garbage = [torch.full((a[d], b[d]), 1e30, device=cuda_device)  # the shapes of the pyramid's resize weights
+               for a, b in zip(shapes, shapes[1:]) for d in (0, 1) for _ in range(8)]
+    for i in range(2, len(seq)):
+        want = vo.step_eager(seq.frames[i], _stream_detections(seq, i))
+        r = vo.push(seq.timestamps[i], seq.frames[i], _stream_detections(seq, i))
+        assert np.array_equal(want[:16].numpy().reshape(4, 4), r.rel), i
+        assert (int(want[16]), bool(want[17]), int(want[18])) == (r.n_inliers, r.ok, r.n_matches), i
+    del garbage

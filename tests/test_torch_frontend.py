@@ -259,5 +259,14 @@ def test_detect_and_describe_batch_equal():
 
 
 def test_frontend_modes_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfeat.detect_and_describe_batch(torch.zeros((1, 64, 64)), mode="sift")
+    """Every mode of the reference's switch is ported: 'sift' and 'surf'
+    return fixed-K float sets (their own tests hold them to the reference),
+    and only a mode the reference lacks raises, as the reference does."""
+    imgs = torch.zeros((1, 64, 64))
+    for mode, dim in (("sift", 128), ("surf", 64)):
+        f = tfeat.detect_and_describe_batch(imgs, k=16, mode=mode)
+        assert f.desc.shape == (1, 16, dim) and f.desc.dtype == torch.float32 and not f.valid.any()
+    with pytest.raises(ValueError, match="unknown frontend mode"):
+        tfeat.detect_and_describe_batch(imgs, mode="akaze")
+    with pytest.raises(ValueError, match="unknown frontend mode"):
+        jfeat.detect_and_describe_batch(jnp.zeros((1, 64, 64)), mode="akaze")

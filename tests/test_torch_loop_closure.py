@@ -56,15 +56,17 @@ def kf_data():
 
 def test_global_descriptors_and_similarity_agree(kf_data):
     """Integer +-1 sums, then one division and one norm: descriptors to
-    1e-6, similarities to 1e-5 (256-term f32 dot products); float sets
-    raise, naming their roadmap item."""
+    1e-6, similarities to 1e-5 (256-term f32 dot products). Float sets (the
+    mean of L2-normalised vectors) pool the same way: here the keyframes'
+    (x, y, score, angle) rows as 4-D vectors, to 1e-6."""
     jf, tf = kf_data["jf"], kf_data["tf"]
     g = tlc.global_descriptors(tf.desc, tf.valid)
     gj = jlc.global_descriptors(jf.desc, jf.valid)
     np.testing.assert_allclose(g.numpy(), np.asarray(gj), atol=1e-6)
     np.testing.assert_allclose(tlc.global_similarity(g).numpy(), np.asarray(jlc.global_similarity(gj)), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tlc.global_descriptors(tf.xy, tf.valid)
+    rows = np.concatenate([np.asarray(jf.xy), np.asarray(jf.score)[..., None], np.asarray(jf.angle)[..., None]], -1)
+    gf = tlc.global_descriptors(torch.from_numpy(rows), tf.valid)
+    np.testing.assert_allclose(gf.numpy(), np.asarray(jlc.global_descriptors(jnp.asarray(rows), jf.valid)), atol=1e-6)
 
 
 def test_shortlist_and_retrieval_counts_agree(kf_data):

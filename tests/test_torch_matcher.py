@@ -239,5 +239,28 @@ def test_match_wrapper_validates_cuda_inputs():
     da, va = _t(*_descriptors(1, 16, seed=1))
     with pytest.raises(ValueError):
         cuda_match.match_reductions_cuda(da, da, va, va.to("meta"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmatch.match(torch.zeros((16, 128)), torch.zeros((16, 128)))
+    with pytest.raises(ValueError, match="unknown match mode"):
+        tmatch.match(da[None], da[None], va[None], va[None], mode="knn")
+
+
+@pytest.mark.parametrize("mode", ["crosscheck", "ratio"])
+@pytest.mark.parametrize("ka,kb", [(96, 160), (160, 96), (1, 40), (40, 2)])
+def test_match_unequal_counts_equals_reference(mode, ka, kb):
+    """Ka != Kb, both ways (the smaller set padded with invalid entries for
+    the reductions): the same validity as the reference's XLA path per
+    pair, and the same index and distance where valid; every index stays
+    inside the train set and equals the reference's on every row, invalid
+    rows included (their minimum ties over all columns: index 0 in both)."""
+    da, va = _descriptors(2, ka, seed=ka + 3 * kb)
+    db, vb = _descriptors(2, kb, seed=ka + 5 * kb + 1)
+    va[1, : ka // 2] = False  # rows with no valid partner and invalid rows on both sides
+    vb[1] = False
+    out = tmatch.match(*_args(da, va, db, vb), mode=mode)
+    assert out.idx.shape == (2, ka) and int(out.idx.max()) < kb and int(out.idx.min()) >= 0
+    for p in range(2):
+        ref = jmatch.match(jnp.asarray(da[p]), jnp.asarray(db[p]), jnp.asarray(va[p]), jnp.asarray(vb[p]), mode=mode)
+        sel = np.asarray(ref.valid)
+        np.testing.assert_array_equal(out.valid[p].numpy(), sel)
+        np.testing.assert_array_equal(out.idx[p].numpy(), np.asarray(ref.idx))
+        np.testing.assert_array_equal(out.distance[p].numpy()[sel], np.asarray(ref.distance)[sel])
+    assert not out.valid[1].any()
