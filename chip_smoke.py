@@ -58,6 +58,23 @@ Phases (any failure raises, so the exit code is non-zero):
      streamed run; per-chunk walls and peak device memory, one chunk's
      store read, host-to-device copy and compute, the warm streamed VO
      frames/s, and the kernels at the chunk shapes against their twins;
+  7b. ingest and the CLIs (phase I), on the stream phase's 400 frames: 8 of
+     them as bags with none, bz2 and lz4 chunks (mono8, rgb8 and bgr8
+     images) read to equal arrays, and as PNG CompressedImage messages;
+     then all 400 as a ROS1 bag (sensor_msgs/Image mono8, one STag-style
+     marker message a frame, lz4 chunks where liblz4 is installed) written
+     by tests/torch_bag_data.py; cli.convert --bag (ground truth on the
+     card) held against the rendered sequence (frames byte-equal, stamps,
+     presence and corners equal, poses within 1e-6, the VOSTORE1 file);
+     cli.run_experiment on the .npz with a checkpoint and 384 hypotheses
+     (phase 7's config, 2 chunks) held against phase 7's run (match counts
+     bit for bit, launches, poses and ATE within 1e-4); cli.analyze on its
+     TUM directory and on that of cli.run_experiment --synthetic (the bench
+     workload, --profile-dir: the trace written, the summary against an
+     in-process run); the kernels at dump_match_images' shapes (a two-frame
+     batch, the match at P = 1) against their twins, and dump_match_images
+     itself where matplotlib is installed; one JSON line {"ingest": ...}
+     with the convert's step walls, the CLI's wall and frames/s;
   8. the float frontends (phase S): on the bench workload, run_sequence with
      VOConfig(frontend=m, match_mode="ratio", dog_threshold=0.5) for m in
      sift and surf: warm wall, frames/s, device idle share, launches of the
@@ -82,7 +99,8 @@ Phases (any failure raises, so the exit code is non-zero):
      for run_sequence, the top aten ops by count), printed as one JSON line
      {"profile": {...}}.
 Then one JSON line with the per-kernel results (`launches` from phase 7's
-run, `launches_by_path` from phases 4-9, each run with the counts set to 0
+run, `launches_by_path` from phases 4-9 ("cli": phase I's run of
+cli.run_experiment on the converted bag), each run with the counts set to 0
 just before it; "online" per push, counted at the graph's capture), and
 last the line {"ok": true, "device": {...}}.
 
@@ -159,6 +177,22 @@ STREAM_CHUNK = 256
 JAX_STREAM_ATE_RMSE = 0.0029075
 STREAM_ATE_TOL = 0.0032
 JAX_STREAM_N_MATCHES = 124496
+
+# Phase I: ingest and the CLIs on the stream cell. The small bags' frames and
+# encodings; the tolerances: marker poses through the bag's float64
+# quaternion and the float32 ground truth, the CLI run against phase 7's
+# (its resume tolerance: the pose graph's index_add_ sums in no fixed order
+# on the card), analyze's ATE from the TUM files against the run's
+# (tum_ate_tolerance: the rotations' drift from orthonormal, which the
+# files' quaternions remove, plus TUM_ATE_ULPS float32 ulps of the poses'
+# condition number times their distance), and the synthetic CLI run against an
+# in-process run of the same rendered frames on the same card.
+INGEST_SMALL_FRAMES = 8
+INGEST_SMALL_ENCODINGS = ("mono8", "mono8", "rgb8", "mono8", "bgr8", "mono8", "mono8", "rgb8")
+POSE_ROUND_TRIP_TOL = 1e-6
+RESUME_POSE_TOL = 1e-4
+TUM_ATE_ULPS = 4
+SYNTH_ATE_TOL = 1e-6
 
 # Phase S: the float frontends. PARITY.md's `clean` scenario (parity.py:
 # scenarios()["clean"]: 60 frames at 640x480) and the JAX package's
@@ -1021,7 +1055,7 @@ def streamed_run(seq, out_dir, ckpt, stop_after=None) -> tuple:
     return res, chunks, calls
 
 
-def phase_stream(results) -> dict:
+def phase_stream(seq, results) -> dict:
     """The shipped default at a depth where streaming switches on by itself:
     STREAM_FRAMES frames at 1440x1080 (over 2 GiB as float32) written to a
     VOSTORE1 file and read back through StoreReader(...).frames();
@@ -1039,7 +1073,6 @@ def phase_stream(results) -> dict:
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
     from droplet_visual_odometry_tpu_torch.utils import checkpoint
 
-    seq = stream_sequence()
     n = len(seq)
     if not 4 * seq.frames.size > pipeline.STREAM_BYTES:
         raise AssertionError("the stream sequence does not exceed the streaming threshold")
@@ -1102,7 +1135,7 @@ def phase_stream(results) -> dict:
             pose_diff = float(np.abs(resumed.vo_abs - res.vo_abs).max())
             log(f"resumed run: VO trajectory equal bit for bit to the uninterrupted run; refined poses differ by "
                 f"{pose_diff:.3e} (the pose graph's index_add_ sums in no fixed order on the card)")
-            if pose_diff > 1e-4 or resumed.backend_info["loop_pairs"] != info["loop_pairs"]:
+            if pose_diff > RESUME_POSE_TOL or resumed.backend_info["loop_pairs"] != info["loop_pairs"]:
                 raise AssertionError("the resumed run's refined poses or loop pairs differ")
 
             # The same frames in memory on the card.
@@ -1169,7 +1202,329 @@ def phase_stream(results) -> dict:
             del raw, chunk_frames, feats
     return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, wall_s=wall_s, chunks=chunks,
                 in_memory_s=mem_s, match_pairs_differ=differ, warm_ms=warm_ms, read_ms=read_ms, h2d_ms=h2d_ms,
-                compute_ms=compute_ms, resumed_pose_diff=pose_diff)
+                compute_ms=compute_ms, resumed_pose_diff=pose_diff, result=res)
+
+
+def bag_fixture():
+    """tests/torch_bag_data.py, the jax-free bag writer the CPU tests use,
+    loaded from this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_bag_data.py")
+    spec = importlib.util.spec_from_file_location("torch_bag_data", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class timed_calls:
+    """Replace module functions by wrappers that add each call's host wall
+    (seconds) to `walls[label]`; restored on exit."""
+
+    def __init__(self, walls: dict, targets: dict):
+        self.walls, self.targets, self.saved = walls, targets, []
+
+    def __enter__(self):
+        for label, (mod, name) in self.targets.items():
+            real = getattr(mod, name)
+
+            def spy(*a, _real=real, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    self.walls[_label] = self.walls.get(_label, 0.0) + time.perf_counter() - t0
+
+            setattr(mod, name, spy)
+            self.saved.append((mod, name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def run_cli(main, argv: list[str], capture_run: bool = False) -> tuple[list[dict], float, object]:
+    """Run a CLI's main(argv) in this process: (the JSON objects it printed,
+    its wall in s, the ExperimentResult of its pipeline.run_experiment call
+    if capture_run)."""
+    import contextlib
+    import io
+
+    from droplet_visual_odometry_tpu_torch import pipeline
+
+    real, got = pipeline.run_experiment, []
+
+    def spy(*a, **kw):
+        got.append(real(*a, **kw))
+        return got[-1]
+
+    buf = io.StringIO()
+    if capture_run:
+        pipeline.run_experiment = spy
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.run_experiment = real
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} exited {rc}")
+    text, dec, docs = buf.getvalue(), json.JSONDecoder(), []
+    i = text.find("{")
+    while i >= 0:
+        doc, end = dec.raw_decode(text, i)
+        docs.append(doc)
+        i = text.find("{", end)
+    return docs, wall, (got[0] if got else None)
+
+
+def tum_ate_tolerance(tum, out_dir: str, res) -> float:
+    """How far analyze's ATE, computed from the TUM files, may lie from the
+    same ATE of the run's float64 poses `res` (an ExperimentResult), to
+    first order: the file holds each pose as float32 values and its rotation
+    as a unit quaternion, so (a) a rotation that drifted from orthonormal in
+    the run's float32 pose chain is stored orthonormalised: max over poses
+    of |R^T R - I| * |t|; and (b) analyze rebuilds and inverts the poses in
+    float32: TUM_ATE_ULPS * eps32 * max of cond(T) * |camera centre|, over
+    both absolute streams."""
+    worst = 0.0
+    for name in ("stamped_ground_truth_absolute.txt", "stamped_traj_estimate_absolute.txt"):
+        _, poses = tum.read_tum(os.path.join(out_dir, name))
+        P = poses.astype(np.float64)
+        centres = np.linalg.norm(np.linalg.inv(P)[:, :3, 3], axis=1)
+        worst = max(worst, float((np.linalg.cond(P) * np.maximum(centres, 1.0)).max()))
+    drift = 0.0
+    for P in (res.gt_abs, res.vo_abs):
+        R, t = np.asarray(P, np.float64)[:, :3, :3], np.asarray(P, np.float64)[:, :3, 3]
+        dev = np.linalg.norm(np.swapaxes(R, 1, 2) @ R - np.eye(3), ord=2, axis=(1, 2))
+        drift = max(drift, float((dev * np.maximum(np.linalg.norm(t, axis=1), 1.0)).max()))
+    return drift + TUM_ATE_ULPS * float(np.finfo(np.float32).eps) * worst
+
+
+def head(seq, n: int):
+    """The first n frames of a sequence."""
+    return dataclasses.replace(seq, frames=seq.frames[:n], timestamps=seq.timestamps[:n],
+                               marker_corners=seq.marker_corners[:n], marker_poses=seq.marker_poses[:n],
+                               marker_present=seq.marker_present[:n], marker_ids=seq.marker_ids[:n], gt_poses=None)
+
+
+def check_small_bags(bags, seq, tmp: str) -> dict:
+    """8 frames of the stream sequence as bags with none, bz2 and lz4 chunks
+    (mono8 frames with rgb8 and bgr8 ones among them): extract_bag gives the
+    same arrays for all three, the rgb frames their BT.601 luma; and as
+    PNG CompressedImage messages (cv2 decodes them), the frames themselves."""
+    from droplet_visual_odometry_tpu_torch.data import rosbag
+
+    small = head(seq, INGEST_SMALL_FRAMES)
+    enc = list(INGEST_SMALL_ENCODINGS)
+    out, first = {}, None
+    for comp in ("none", "bz2", "lz4"):
+        path = os.path.join(tmp, f"small_{comp}.bag")
+        bags.sequence_bag(path, small, comp, encodings=enc)
+        t0 = time.perf_counter()
+        got = rosbag.extract_bag(path, bags.IMG_TOPIC, bags.MARKER_TOPIC)
+        out[comp] = dict(bytes=os.path.getsize(path), read_s=time.perf_counter() - t0)
+        if first is None:
+            first = got
+            if not np.array_equal(got[0]["frames"], bags.expected_frames(small, enc)):
+                raise AssertionError("small bag: frames differ from the sequence's (rgb frames: their luma)")
+            if not np.array_equal(got[0]["timestamps"], bags.stored_stamps(small.timestamps)):
+                raise AssertionError("small bag: stamps differ from the stored stamps")
+        for a, b in zip(got, first):
+            for k in b:
+                if not np.array_equal(a[k], b[k], equal_nan=b[k].dtype.kind == "f"):
+                    raise AssertionError(f"small bag {comp}: {k} differs from the uncompressed bag's")
+    path = os.path.join(tmp, "small_png.bag")
+    bags.sequence_bag(path, small, "none", compressed=True)
+    if not np.array_equal(rosbag.extract_bag(path, bags.IMG_TOPIC, bags.MARKER_TOPIC)[0]["frames"], small.frames):
+        raise AssertionError("small bag: PNG CompressedImage frames differ from the sequence's")
+    log(f"small bags ({INGEST_SMALL_FRAMES} frames, {'/'.join(enc)}): none / bz2 / lz4 give equal arrays "
+        f"({json.dumps(out)}); PNG CompressedImage frames equal")
+    return out
+
+
+def phase_ingest(seq, stream: dict, results) -> dict:
+    """Phase I, ingest and the CLIs on the stream cell: the 400 rendered
+    frames written as a ROS1 bag (mono8 images, one STag-style marker
+    message a frame, the absent frames' messages a decoy of another id with
+    the frame's pose), converted by cli.convert (--bag, ground truth on the
+    card) and held against the rendered sequence; cli.run_experiment on the
+    converted .npz with a checkpoint and 384 hypotheses (phase 7's config)
+    held against phase 7's streamed run; cli.analyze on its TUM directory;
+    then the synthetic source with --profile-dir against an in-process run,
+    and the kernels at the debug images' shapes (a two-frame batch, the
+    match at P = 1) against their twins."""
+    from droplet_visual_odometry_tpu_torch import groundtruth, pipeline
+    from droplet_visual_odometry_tpu_torch import convert as config_from
+    from droplet_visual_odometry_tpu_torch.cli import analyze, convert, run_experiment
+    from droplet_visual_odometry_tpu_torch.data import lz4f, native_store, rosbag, sequence, synthetic
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+    from droplet_visual_odometry_tpu_torch.eval import metrics, tum
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.utils import checkpoint, profiling
+
+    bags = bag_fixture()
+    n = len(seq)
+    phase7 = stream["result"]
+    with tempfile.TemporaryDirectory() as tmp:
+        small = check_small_bags(bags, seq, tmp)
+
+        # The 400-frame bag, lz4 chunks where liblz4 is present.
+        compression = "lz4" if lz4f.native_available() else "none"
+        bag, calib = os.path.join(tmp, "run.bag"), os.path.join(tmp, "cam.yaml")
+        t0 = time.perf_counter()
+        bags.sequence_bag(bag, seq, compression)
+        bag_write_s = time.perf_counter() - t0
+        bags.write_calibration(calib, seq.camera)
+        bag_mb = os.path.getsize(bag) / 1e6
+        log(f"wrote a {n}-frame bag ({compression} chunks): {bag_mb:.1f} MB in {bag_write_s:.2f} s")
+
+        # Convert, each step timed.
+        npz, store = os.path.join(tmp, "seq.npz"), os.path.join(tmp, "seq.vost")
+        walls = {}
+        steps = {"bag_read_decode": (rosbag, "extract_bag"), "pairing": (native_store, "pair_stamps"),
+                 "ground_truth": (groundtruth, "sequence_from_detections"), "npz_write": (sequence, "save"),
+                 "vostore_write": (native_store, "write_store")}
+        with timed_calls(walls, steps):
+            _, convert_s, _ = run_cli(convert.main, [
+                "--bag", bag, "--calibration", calib, "--marker-id", "0",
+                "--marker-length", repr(seq.real_marker_length), "--camera-frame-detections",
+                "--out", npz, "--vostore", store])
+        if set(walls) != set(steps):
+            raise AssertionError(f"convert did not go through every step: {sorted(walls)}")
+        conv = sequence.load(npz)
+        present = seq.marker_present
+        stamp_err = float(np.abs(conv.timestamps - seq.timestamps).max())
+        pose_err = float(np.abs(conv.marker_poses - seq.marker_poses).max())
+        if not np.array_equal(conv.frames, seq.frames):
+            raise AssertionError("converted frames differ from the rendered ones")
+        if not np.array_equal(conv.timestamps, bags.stored_stamps(seq.timestamps)):
+            raise AssertionError("converted timestamps differ from the bag's stored stamps")
+        if not np.array_equal(conv.marker_present, present):
+            raise AssertionError("converted marker_present differs")
+        if not (np.array_equal(conv.marker_corners[present], seq.marker_corners[present])
+                and np.isnan(conv.marker_corners[~present]).all()):
+            raise AssertionError("converted corners differ where the marker is present, or are not NaN elsewhere")
+        if pose_err > POSE_ROUND_TRIP_TOL:
+            raise AssertionError(f"converted marker poses {pose_err} from the rendered ones")
+        with native_store.StoreReader(store) as reader:
+            if not (np.array_equal(reader.read(0, reader.n), seq.frames)
+                    and np.array_equal(reader.timestamps(), conv.timestamps)):
+                raise AssertionError("the VOSTORE1 file differs from the converted frames")
+        log(f"converted {n} frames in {convert_s:.2f} s ({n / convert_s:.2f} frames/s): steps "
+            f"{json.dumps({k: round(v, 4) for k, v in walls.items()})}; bag read and decode "
+            f"{bag_mb / walls['bag_read_decode']:.1f} MB/s; frames byte-equal, stamps equal to the bag's "
+            f"nanosecond stamps (at most {stamp_err:.3e} s from the rendered), marker_present and corners equal, "
+            f"marker poses within {pose_err:.3e} (the quaternion round trip), the VOSTORE1 file equal")
+
+        # run_experiment on the converted sequence: phase 7's configuration, streamed in 2 chunks.
+        out_dir, ckpt = os.path.join(tmp, "out"), os.path.join(tmp, "state.npz")
+        reset_launches()
+        docs, cli_s, res = run_cli(run_experiment.main, [
+            "--sequence", npz, "--out-dir", out_dir, "--checkpoint", ckpt,
+            "--ransac-hypotheses", str(VOConfig(scale_mode="hold").ransac.n_hypotheses), "--seed", str(SEED)],
+            capture_run=True)
+        launches = read_launches()
+        summary = docs[0]
+        check_run_outputs(res, out_dir, n)
+        if summary["config"] != json.loads(json.dumps(dataclasses.asdict(VOConfig(scale_mode="hold")))):
+            raise AssertionError(f"the CLI's config is not phase 7's VOConfig(scale_mode='hold'): {summary['config']}")
+        if launches != stream["launches"]:
+            raise AssertionError(f"CLI launches {launches} differ from phase 7's {stream['launches']}")
+        if int(checkpoint.load_state(ckpt)["next_start"]) != n:
+            raise AssertionError("the CLI run did not stream to the end through its checkpoint")
+        nm, nm7 = res.trajectory.n_matches, phase7.trajectory.n_matches
+        if not np.array_equal(nm, nm7):
+            raise AssertionError(f"CLI match counts differ from phase 7's on {int((nm != nm7).sum())} pairs")
+        vo_diff = float(np.abs(res.trajectory.abs_poses - phase7.trajectory.abs_poses).max())
+        _, est = tum.read_tum(os.path.join(out_dir, "stamped_traj_estimate_absolute.txt"))
+        pose_diff = float(np.abs(est - phase7.vo_abs).max())
+        ate_diff = abs(summary["ate_rmse_m"] - phase7.ate.rmse)
+        log(f"cli.run_experiment on the converted sequence: {cli_s:.2f} s cold ({summary['frames_per_second']:.2f} "
+            f"frames/s by its summary), launches {launches}; n_matches {n - 1}/{n - 1} pairs equal to phase 7's; "
+            f"VO chain before the pose graph vs phase 7's {vo_diff:.3e} (its first pose is the converted marker "
+            f"pose); TUM estimate after the pose graph vs phase 7's poses {pose_diff:.3e}, ATE "
+            f"{summary['ate_rmse_m']!r} vs {phase7.ate.rmse!r} (tolerance {RESUME_POSE_TOL}); loop pairs "
+            f"{res.backend_info['loop_pairs']}")
+        if vo_diff > POSE_ROUND_TRIP_TOL:
+            raise AssertionError(f"CLI VO chain {vo_diff} from phase 7's")
+        if pose_diff > RESUME_POSE_TOL or ate_diff > RESUME_POSE_TOL:
+            raise AssertionError(f"CLI poses {pose_diff} / ATE {ate_diff} from phase 7's")
+
+        # The synthetic source with a profile, against an in-process run of the same sequence.
+        prof_dir, synth_dir = os.path.join(tmp, "prof"), os.path.join(tmp, "synth")
+        rendered = []
+        real_render = synthetic.render_sequence
+        synthetic.render_sequence = lambda cfg: rendered.append(real_render(cfg)) or rendered[-1]
+        try:
+            reset_launches()
+            docs, synth_s, synth_res = run_cli(run_experiment.main, [
+                "--synthetic", "--n-frames", str(SEQ_CONFIG["n_frames"]), "--width", str(SEQ_CONFIG["width"]),
+                "--height", str(SEQ_CONFIG["height"]), "--backend", "none", "--seed", str(SEED),
+                "--out-dir", synth_dir, "--profile-dir", prof_dir], capture_run=True)
+            synth_launches = read_launches()
+        finally:
+            synthetic.render_sequence = real_render
+        synth = docs[0]
+        trace_mb = os.path.getsize(os.path.join(prof_dir, profiling.TRACE_FILE)) / 1e6
+        ref = pipeline.run_experiment(rendered[0], config_from.vo_config_from_dict(synth["config"]), None, SEED,
+                                      backend="none", device="cuda")
+        synth_diff = abs(synth["ate_rmse_m"] - ref.ate.rmse)
+        log(f"cli.run_experiment --synthetic {SEQ_CONFIG['n_frames']} frames at {SEQ_CONFIG['width']}x"
+            f"{SEQ_CONFIG['height']} with --profile-dir: {synth_s:.2f} s, trace {trace_mb:.1f} MB, launches "
+            f"{synth_launches}; ATE {synth['ate_rmse_m']!r} vs in-process {ref.ate.rmse!r} ({synth_diff:.3e})")
+        if synth_diff > SYNTH_ATE_TOL or synth["median_matches"] != int(np.median(ref.trajectory.n_matches)):
+            raise AssertionError("the synthetic CLI run differs from the in-process run")
+        if synth_launches != {"fast_score": 4, "orb_describe": 4, "hamming_match": 1}:
+            raise AssertionError(f"synthetic CLI launches {synth_launches}")
+
+        # analyze on both TUM directories. It scores every frame of the streams (as the reference's
+        # does); the summary's ATE scores the marker-present frames. On the synthetic run the two
+        # sets are one, so analyze gives the summary's ATE; on the bag run it gives the ATE of the
+        # run's own poses over all frames.
+        analyze_s, analyze_diff = {}, {}
+        for label, d, run, want in (
+            ("synthetic", synth_dir, synth_res, synth["ate_rmse_m"]),
+            ("bag", out_dir, res, metrics.ate(np.linalg.inv(res.gt_abs), np.linalg.inv(res.vo_abs)).rmse),
+        ):
+            (report,), analyze_s[label], _ = run_cli(analyze.main, [d])
+            analyze_diff[label] = abs(report["ate"]["rmse"] - want)
+            tol = tum_ate_tolerance(tum, d, run)
+            log(f"cli.analyze on the {label} run: {analyze_s[label]:.3f} s; ATE {report['ate']['rmse']!r} vs "
+                f"{want!r} (difference {analyze_diff[label]:.3e}, tolerance {tol:.3e}: the TUM files' bound)")
+            if analyze_diff[label] > tol:
+                raise AssertionError(f"analyze's ATE on the {label} run {analyze_diff[label]} from {want}")
+
+        # The debug images' shapes: a two-frame batch and the match at P = 1.
+        pair = pipeline.preprocess_frames(head(rendered[0], 2), "cuda")
+        fast_d, desc_d = frontend_levels(pair, VOConfig().n_keypoints, "dump pair")
+        feats = detect_and_describe_batch(pair, k=VOConfig().n_keypoints)
+        results["fast_score"]["dump_pair"] = frontend_row(fast_d)
+        results["orb_describe"]["dump_pair"] = frontend_row(desc_d)
+        results["hamming_match"]["dump_pair"] = match_case("dump pair", feats.desc[:1], feats.desc[1:],
+                                                           feats.valid[:1], feats.valid[1:])
+        try:
+            import matplotlib  # noqa: F401  (absent on some card machines: --plot and --dump-matches need it)
+        except ImportError:
+            dump = "matplotlib absent: --plot and --dump-matches not run here (held by the CPU tests)"
+        else:
+            reset_launches()
+            paths = pipeline.dump_match_images(rendered[0], VOConfig(), os.path.join(tmp, "debug"), n_pairs=2)
+            dump = dict(images=len(paths), launches=read_launches())
+            if dump["launches"] != {"fast_score": 8, "orb_describe": 8, "hamming_match": 2}:
+                raise AssertionError(f"dump_match_images launches {dump['launches']}")
+        log(f"dump_match_images: {dump}")
+    return dict(bag_mb=bag_mb, bag_compression=compression, bag_write_s=bag_write_s, small_bags=small,
+                convert_s=convert_s, convert_steps_s=walls, convert_frames_per_s=n / convert_s,
+                bag_read_mb_per_s=bag_mb / walls["bag_read_decode"], stamp_err_s=stamp_err, pose_round_trip=pose_err,
+                cli_s=cli_s, cli_frames_per_second=summary["frames_per_second"], cli_vo_diff=vo_diff,
+                cli_pose_diff=pose_diff, cli_ate=summary["ate_rmse_m"], analyze_s=analyze_s,
+                analyze_ate_diff=analyze_diff,
+                synthetic_cli_s=synth_s, synthetic_ate_diff=synth_diff, trace_mb=trace_mb, launches=launches,
+                synthetic_launches=synth_launches, dump_match_images=dump)
 
 
 def float_config(mode: str):
@@ -1500,8 +1855,12 @@ def main() -> int:
     loop_seq = phase_loop_data()
     pg = phase_pose_graph(loop_seq, kernels)
     ba = phase_ba(loop_seq, kernels)
-    stream = phase_stream(kernels)
-    log(json.dumps({"stream": {k: v for k, v in stream.items() if k not in ("launches", "info")}}))
+    stream_seq = stream_sequence()
+    stream = phase_stream(stream_seq, kernels)
+    log(json.dumps({"stream": {k: v for k, v in stream.items() if k not in ("launches", "info", "result")}}))
+    ingest = phase_ingest(stream_seq, stream, kernels)
+    del stream_seq
+    log(json.dumps({"ingest": ingest}))
     float_modes = phase_float(seq)
     log(json.dumps({"float_frontends": float_modes}))
     online = phase_online(seq, none_traj, kernels)
@@ -1516,7 +1875,8 @@ def main() -> int:
     # launches_by_path gives each path's own run, the counts set to 0 just before it.
     # "online" is per push: the launches captured in the push's graph, which every replay runs.
     by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"],
-               "online": online["launches_per_push"], **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
+               "cli": ingest["launches"], "online": online["launches_per_push"],
+               **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
     rows = [
         dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],
              launches_by_path={path: counts[name] for path, counts in by_path.items()}, library_ms=None)

@@ -1,8 +1,6 @@
 """SO(3)/SE(3) math on torch tensors — port of droplet_visual_odometry_tpu/core/se3.py.
 
-Only the subset on the per-pair VO path and the pose graph (se3_log,
-adjoint, ad) is ported. Every function broadcasts
-over leading batch dimensions, as in the reference.
+Every function broadcasts over leading batch dimensions, as in the reference.
 
 Conventions (unchanged): quaternions are xyzw; SE(3) poses are (..., 4, 4).
 """
@@ -229,3 +227,92 @@ def compose(*Ts: torch.Tensor) -> torch.Tensor:
     for T in Ts[1:]:
         out = out @ T
     return out
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of xyzw quaternions: R(q1 * q2) = R(q1) @ R(q2)."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * constant((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
+
+
+def _rot_from_entries(entries: list[torch.Tensor]) -> torch.Tensor:
+    m = torch.stack(entries, dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def _rx(a: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot_from_entries([o, z, z, z, c, -s, z, s, c])
+
+
+def _ry(a: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot_from_entries([c, z, s, z, o, z, -s, z, c])
+
+
+def _rz(a: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot_from_entries([c, -s, z, s, c, z, z, z, o])
+
+
+def euler_to_rotmat(euler: torch.Tensor, axes: str = "sxyz") -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation (..., 3, 3): 'sxyz' (extrinsic,
+    Rz @ Ry @ Rx) or 'rxyz' (intrinsic, Rx @ Ry @ Rz), as tf.transformations."""
+    ax, ay, az = euler.unbind(-1)
+    if axes == "sxyz":
+        return _rz(az) @ _ry(ay) @ _rx(ax)
+    if axes == "rxyz":
+        return _rx(ax) @ _ry(ay) @ _rz(az)
+    raise ValueError(f"unsupported euler convention: {axes}")
+
+
+def rotmat_to_euler(R: torch.Tensor, axes: str = "sxyz") -> torch.Tensor:
+    """Rotation (..., 3, 3) -> euler angles (..., 3) for 'sxyz' / 'rxyz'; at
+    gimbal lock (middle angle +-pi/2) the third ('sxyz': first) angle is 0."""
+    eps = 1e-7
+    if axes == "rxyz":
+        b = torch.asin(torch.clamp(R[..., 0, 2], -1.0, 1.0))
+        safe = torch.abs(torch.cos(b)) > eps
+        a = torch.where(safe, torch.atan2(-R[..., 1, 2], R[..., 2, 2]), torch.atan2(R[..., 2, 1], R[..., 1, 1]))
+        c = torch.where(safe, torch.atan2(-R[..., 0, 1], R[..., 0, 0]), torch.zeros_like(b))
+        return torch.stack([a, b, c], dim=-1)
+    if axes == "sxyz":
+        b = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+        safe = torch.abs(torch.cos(b)) > eps
+        a = torch.where(safe, torch.atan2(R[..., 2, 1], R[..., 2, 2]), torch.zeros_like(b))
+        c = torch.where(safe, torch.atan2(R[..., 1, 0], R[..., 0, 0]), torch.atan2(-R[..., 0, 1], R[..., 1, 1]))
+        return torch.stack([a, b, c], dim=-1)
+    raise ValueError(f"unsupported euler convention: {axes}")
+
+
+def from_translation_euler(t: torch.Tensor, euler: torch.Tensor, axes: str = "sxyz") -> torch.Tensor:
+    """Translation + euler -> 4x4 = translation_matrix(t) @ euler_matrix(euler)."""
+    return make_se3(euler_to_rotmat(euler, axes=axes), t)
+
+
+def marker_to_marker(prev_cTm: torch.Tensor, curr_cTm: torch.Tensor) -> torch.Tensor:
+    """inv(prev) @ curr."""
+    return inverse(prev_cTm) @ curr_cTm
+
+
+def camera_to_camera(prev_cTm: torch.Tensor, curr_cTm: torch.Tensor) -> torch.Tensor:
+    """prev @ inv(curr)."""
+    return prev_cTm @ inverse(curr_cTm)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    return pts @ rotation(T).transpose(-1, -2) + translation(T)[..., None, :]

@@ -1,6 +1,7 @@
 """The native frame store (VOSTORE1) — port of
 droplet_visual_odometry_tpu/data/native_store.py: write_store, StoreReader
-and StoreFrames, the host side of the chunked streaming path.
+and StoreFrames, the host side of the chunked streaming path, and the two
+ingest helpers pair_stamps and rgb_to_gray.
 
 The library is the repository's C++ source native/src/vostore.cpp, built at
 first use with the host C++ compiler into this package's `_build/`
@@ -45,6 +46,8 @@ _SIGNATURES = {  # name: (restype, argtypes)
     "vostore_prefetch_release": (None, [_P]),
     "vostore_prefetch_stop": (None, [_P]),
     "vostore_close": (None, [_P]),
+    "vostore_pair_stamps": (ctypes.c_int64, [_P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P]),
+    "vostore_rgb_to_gray": (None, [_P, _P, ctypes.c_int64, ctypes.c_int]),
 }
 
 
@@ -202,3 +205,32 @@ class StoreFrames:
         for k, i in enumerate(idx):
             out[k] = self._r.read(int(i), 1)[0]
         return out
+
+
+# ---------------------------------------------------------------------------
+# host-side ingest helpers
+# ---------------------------------------------------------------------------
+
+
+def pair_stamps(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Exact-stamp pairing of two SORTED stamp arrays -> (idx_a, idx_b), a
+    merge-join in C++ (duplicate stamps pair first with first)."""
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    ia = np.empty(min(len(a), len(b)), np.int64)
+    ib = np.empty_like(ia)
+    k = library().vostore_pair_stamps(_ptr(a), len(a), _ptr(b), len(b), _ptr(ia), _ptr(ib))
+    return ia[:k].copy(), ib[:k].copy()
+
+
+def rgb_to_gray(img: np.ndarray, order: str = "rgb") -> np.ndarray:
+    """(..., 3) uint8 -> (...) uint8 BT.601 luma in OpenCV's 15-bit fixed
+    point (cvtColor parity); order "rgb" or "bgr"."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.shape[-1] != 3:
+        raise ValueError(f"rgb_to_gray: expected (..., 3) pixels, got {img.shape}")
+    if order not in ("rgb", "bgr"):
+        raise ValueError(f"rgb_to_gray: unknown channel order {order!r}")
+    out = np.empty(img.shape[:-1], np.uint8)
+    library().vostore_rgb_to_gray(_ptr(img), _ptr(out), out.size, 0 if order == "rgb" else 1)
+    return out

@@ -11,13 +11,14 @@ timestamps (reference: scripts/get_valid_message_stream.py:21-68, 80-87; marker
 messages with zero markers are dropped at :32-34). Here the equivalent is a
 fixed-shape array "sequence": decoded grayscale frames + per-frame marker
 detections + stamps, stored as one .npz — the host-side data plane that feeds
-device batches. (The reference's rosbag pairing helpers are not ported yet.)
+device batches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Sequence as Seq
 
 import numpy as np
 
@@ -123,3 +124,47 @@ def load(path: str) -> VOSequence:
     )
     seq.validate()
     return seq
+
+
+def pair_timestamps(image_stamps: Seq[float], marker_stamps: Seq[float]) -> np.ndarray:
+    """Exact-equality timestamp intersection, sorted ascending: the
+    reference's pairing rule (set(image_map) & set(marker_map), then sorted).
+    Frames without a same-stamp marker detection are dropped, and vice versa."""
+    common = sorted(set(np.asarray(image_stamps).tolist()) & set(np.asarray(marker_stamps).tolist()))
+    return np.asarray(common, dtype=np.float64)
+
+
+def build_paired_sequence(
+    image_stamps: np.ndarray,
+    frames: np.ndarray,
+    marker_stamps: np.ndarray,
+    marker_corners: np.ndarray,
+    marker_poses: np.ndarray,
+    marker_ids: np.ndarray,
+    camera: Camera,
+    real_marker_length: float,
+) -> VOSequence:
+    """Assemble a VOSequence from separate image and marker streams by
+    exact-stamp pairing. Marker entries whose id < 0 (the analog of empty
+    marker messages) are dropped before pairing."""
+    valid = marker_ids >= 0
+    marker_stamps = marker_stamps[valid]
+    marker_corners = marker_corners[valid]
+    marker_poses = marker_poses[valid]
+    marker_ids = marker_ids[valid]
+
+    common = pair_timestamps(image_stamps, marker_stamps)
+    img_index = {float(t): i for i, t in enumerate(image_stamps)}
+    mrk_index = {float(t): i for i, t in enumerate(marker_stamps)}
+    ii = np.asarray([img_index[float(t)] for t in common], np.int64)
+    mi = np.asarray([mrk_index[float(t)] for t in common], np.int64)
+    return VOSequence(
+        frames=frames[ii],
+        timestamps=common,
+        marker_corners=marker_corners[mi].astype(np.float32),
+        marker_poses=marker_poses[mi].astype(np.float32),
+        marker_present=np.ones(len(common), bool),
+        marker_ids=marker_ids[mi].astype(np.int32),
+        camera=camera,
+        real_marker_length=real_marker_length,
+    )

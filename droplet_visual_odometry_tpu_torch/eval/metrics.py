@@ -81,3 +81,37 @@ def rpe(gt_poses: np.ndarray, est_poses: np.ndarray, delta: int = 1) -> RPEResul
         trans_errors=t_err,
         rot_errors_deg=r_err,
     )
+
+
+def per_axis_stats(poses: np.ndarray, axes: str = "sxyz") -> dict[str, np.ndarray]:
+    """Per-axis std/mean of the translations and euler angles of (N, 4, 4)
+    poses, computed in float32 as the reference's jnp arrays are."""
+    P = torch.as_tensor(np.asarray(poses), dtype=torch.float32)
+    t = se3.translation(P).numpy()
+    e = se3.rotmat_to_euler(se3.rotation(P), axes=axes).numpy()
+    return {
+        "translation_std": t.std(axis=0),
+        "translation_mean": t.mean(axis=0),
+        "euler_std": e.std(axis=0),
+        "euler_mean": e.mean(axis=0),
+    }
+
+
+def gt_vo_difference(gt_poses: np.ndarray, vo_poses: np.ndarray) -> dict[str, np.ndarray]:
+    """Per-frame GT-vs-VO deltas of (N, 4, 4) streams: translation_diff
+    (N, 3) gt_t - vo_t in float64, euler_diff (N, 3) gt - vo 'sxyz' angles
+    (float32 angles, the delta wrapped into [-pi, pi)) and euclidean (N,)
+    ||gt_t - vo_t||."""
+    gt_poses = np.asarray(gt_poses, np.float64)
+    vo_poses = np.asarray(vo_poses, np.float64)
+    if gt_poses.shape != vo_poses.shape or gt_poses.shape[1:] != (4, 4):
+        raise ValueError(f"gt_vo_difference: shapes {gt_poses.shape} and {vo_poses.shape}")
+    t_diff = gt_poses[:, :3, 3] - vo_poses[:, :3, 3]
+    euler = lambda P: se3.rotmat_to_euler(torch.as_tensor(P[:, :3, :3], dtype=torch.float32)).numpy()
+    e_diff = euler(gt_poses) - euler(vo_poses)
+    e_diff = (e_diff + np.pi) % (2.0 * np.pi) - np.pi
+    return {
+        "translation_diff": t_diff,
+        "euler_diff": e_diff,
+        "euclidean": np.linalg.norm(t_diff, axis=1),
+    }

@@ -184,3 +184,76 @@ def run_experiment(
         stream_paths=paths,
         backend_info=backend_info,
     )
+
+
+def dump_match_images(
+    seq: VOSequence,
+    cfg: VOConfig,
+    out_dir: str,
+    n_pairs: int = 4,
+    seed: int = 0,
+    max_draw: int = 100,
+    *,
+    device="cuda",
+) -> list[str]:
+    """Side-by-side matched-keypoint debug images for evenly spaced frame
+    pairs (RANSAC inliers green, outliers red), a keypoint overlay of the
+    first pair's first frame, and the marker corners where both frames have
+    the marker. Each pair runs on `device` as a two-frame batch: the
+    frontend, the match at P = 1, LO-RANSAC with a generator seeded from
+    (seed, pair). Returns the written paths."""
+    import os
+
+    from droplet_visual_odometry_tpu_torch.estimation.ransac import ransac_pose
+    from droplet_visual_odometry_tpu_torch.eval import plots
+    from droplet_visual_odometry_tpu_torch.frontend import matcher
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.utils.checkpoint import chunk_seed
+
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(seq)
+    if n < 2:
+        return []
+    pair_starts = sorted({int(i) for i in np.linspace(0, n - 2, max(1, min(n_pairs, n - 1)))})
+    dev = resolve_device(device)
+    preprocess = make_preprocessor(seq, dev)
+    K = torch.as_tensor(effective_K(seq), dtype=torch.float32, device=dev)
+
+    paths: list[str] = []
+    for i in pair_starts:
+        frames = preprocess(seq.frames[i : i + 2])
+        feats = detect_and_describe_batch(
+            frames,
+            k=cfg.n_keypoints,
+            threshold=cfg.fast_threshold,
+            mode=cfg.frontend,
+            dog_threshold=cfg.dog_threshold,
+            n_levels=cfg.n_levels if cfg.frontend == "orb" else 1,
+            scale_factor=cfg.scale_factor,
+        )
+        m = matcher.match(feats.desc[:1], feats.desc[1:], feats.valid[:1], feats.valid[1:],
+                          mode=cfg.match_mode, ratio=cfg.ratio)
+        p_prev, p_curr, valid = matcher.gather_correspondences(feats.xy[:1], feats.xy[1:], m)
+        generator = torch.Generator(device=dev).manual_seed(chunk_seed(seed, i))
+        _, _, res = ransac_pose(p_prev, p_curr, valid, K, cfg.ransac, generator)
+        fa, fb = frames[0].cpu().numpy(), frames[1].cpu().numpy()
+        xy = feats.xy.cpu().numpy()
+        path = os.path.join(out_dir, f"match_{i:05d}.png")
+        plots.plot_matches(
+            path, fa, fb, xy[0], xy[1], m.idx[0].cpu().numpy(), m.valid[0].cpu().numpy(),
+            inliers=res.inliers[0].cpu().numpy(), max_draw=max_draw,
+            title=f"pair {i}->{i+1} ({cfg.frontend}/{cfg.match_mode})",
+        )
+        paths.append(path)
+        if i == pair_starts[0]:
+            kp_path = os.path.join(out_dir, f"keypoints_{i:05d}.png")
+            plots.plot_keypoints(kp_path, fa, xy[0], feats.valid[0].cpu().numpy(), title=f"frame {i} ({cfg.frontend})")
+            paths.append(kp_path)
+        if seq.marker_present[i] and seq.marker_present[i + 1]:
+            mc_path = os.path.join(out_dir, f"marker_corners_{i:05d}.png")
+            plots.plot_marker_corners(
+                mc_path, np.asarray(seq.marker_corners[i]), np.asarray(seq.marker_corners[i + 1]),
+                frame=fa, title=f"marker corners {i}->{i+1}",
+            )
+            paths.append(mc_path)
+    return paths

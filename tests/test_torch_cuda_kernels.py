@@ -567,3 +567,100 @@ def test_online_vo_replay_survives_constant_cache_churn(cuda_device):
         assert np.array_equal(want[:16].numpy().reshape(4, 4), r.rel), i
         assert (int(want[16]), bool(want[17]), int(want[18])) == (r.n_inliers, r.ok, r.n_matches), i
     del garbage
+
+
+# --------------------------------------------------------------------------
+# Ingest and the CLIs on the card
+# --------------------------------------------------------------------------
+
+
+def _cli_json(main, argv) -> dict:
+    """Run a CLI's main(argv) and return the first JSON object it printed."""
+    import contextlib
+    import io
+    import json
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    text = buf.getvalue()
+    return json.JSONDecoder().raw_decode(text, text.index("{"))[0]
+
+
+def _ingest_sequence():
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=12, width=640, height=480, n_landmarks=350))
+    seq.marker_present[5:7] = False
+    seq.marker_corners[5:7] = np.nan
+    return seq
+
+
+def test_derive_ground_truth_on_cuda_equals_cpu(cuda_device):
+    """The ground truth of 64 frames of up to 4 markers on the card: cTm
+    within 1e-6 of the CPU's, presence, slots and corners equal, pixel
+    lengths within 1e-5 (relative)."""
+    from droplet_visual_odometry_tpu_torch import groundtruth as gt
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 6, (64, 4)).astype(np.int32)
+    ids[::5] = -1
+    q = rng.normal(size=(64, 4, 4))
+    dets = gt.detections_from_arrays(ids, rng.normal(size=(64, 4, 3)), q / np.linalg.norm(q, axis=-1, keepdims=True),
+                                     rng.uniform(0, 1440, (64, 4, 4, 2)))
+    for use_base_link in (True, False):
+        cfg = gt.GroundTruthConfig(use_base_link=use_base_link)
+        cpu = gt.derive_ground_truth(dets, 3, cfg)
+        gpu = gt.derive_ground_truth(gt.MarkerDetections(*(a.to(cuda_device) for a in dets)), 3, cfg)
+        assert gpu.cTm.is_cuda
+        np.testing.assert_allclose(gpu.cTm.cpu().numpy(), cpu.cTm.numpy(), rtol=0, atol=1e-6)
+        assert torch.equal(gpu.present.cpu(), cpu.present) and torch.equal(gpu.corners.cpu(), cpu.corners)
+        np.testing.assert_allclose(gpu.pixel_length.cpu().numpy(), cpu.pixel_length.numpy(), rtol=1e-5)
+
+
+def test_cli_convert_and_run_on_cuda_equal_in_process(cuda_device, tmp_path):
+    """A 12-frame 640x480 bag (lz4 chunks) converted by the CLI on the card
+    (no --platform), then run_experiment's CLI on the card (backend none,
+    384 hypotheses): equal to pipeline.run_experiment on the converted
+    sequence in the same process (the same draws on the same card): match
+    and inlier counts equal, the TUM estimate within 1e-5, the ATE within 1e-6."""
+    import torch_bag_data as bags
+
+    from droplet_visual_odometry_tpu_torch.cli import convert, run_experiment
+    from droplet_visual_odometry_tpu_torch.data import sequence
+    from droplet_visual_odometry_tpu_torch.eval import tum
+
+    seq = _ingest_sequence()
+    bag, calib, npz = str(tmp_path / "r.bag"), str(tmp_path / "cam.yaml"), str(tmp_path / "s.npz")
+    bags.sequence_bag(bag, seq, "lz4")
+    bags.write_calibration(calib, seq.camera)
+    assert convert.main(["--bag", bag, "--calibration", calib, "--marker-id", "0", "--marker-length",
+                         str(seq.real_marker_length), "--camera-frame-detections", "--out", npz]) == 0
+    conv = sequence.load(npz)
+    assert np.array_equal(conv.frames, seq.frames) and np.array_equal(conv.marker_present, seq.marker_present)
+    np.testing.assert_allclose(conv.marker_poses, seq.marker_poses, rtol=0, atol=1e-6)
+
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    out = str(tmp_path / "out")
+    summary = _cli_json(run_experiment.main, ["--sequence", npz, "--out-dir", out, "--backend", "none",
+                                              "--ransac-hypotheses", "384", "--seed", "0"])
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    ref = pipeline.run_experiment(conv, VOConfig(scale_mode="hold"), None, 0, backend="none")
+    assert summary["config"]["ransac"]["n_hypotheses"] == 384
+    assert summary["median_matches"] == int(np.median(ref.trajectory.n_matches))
+    assert summary["median_inliers"] == int(np.median(ref.trajectory.n_inliers))
+    assert abs(summary["ate_rmse_m"] - ref.ate.rmse) <= 1e-6
+    _, est = tum.read_tum(f"{out}/stamped_traj_estimate_absolute.txt")
+    np.testing.assert_allclose(est, ref.vo_abs, rtol=0, atol=1e-5)  # through the TUM quaternion
+
+
+def test_run_experiment_cli_runs_on_cuda_by_default(cuda_device, tmp_path):
+    """run_experiment's CLI without --platform: the synthetic source on the
+    card, through all three kernels, with a finite summary."""
+    from droplet_visual_odometry_tpu_torch.cli import run_experiment
+
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    summary = _cli_json(run_experiment.main, ["--synthetic", "--n-frames", "8", "--backend", "none",
+                                              "--out-dir", str(tmp_path / "out")])
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert summary["n_frames"] == 8 and np.isfinite(summary["ate_rmse_m"]) and summary["ok_fraction"] == 1.0
