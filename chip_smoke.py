@@ -92,16 +92,34 @@ Phases (any failure raises, so the exit code is non-zero):
      graph added; the kernels at the push's shapes (one frame's levels, the
      match at P = 1) against their twins; then a SIFT engine's pushes
      against its eager step;
-  10. with --profile only: each stage of run_sequence, pose_graph_trajectory
+  10. multi-device (phase M), parallel/ on torch.distributed, one card:
+     M1, a world of one rank over NCCL (launch.initialize with a
+     coordinator): shard_pair_vo on the loop's first 32 pairs with
+     VOConfig() and seeded draws (launch counters 4/4/>=1, the rels equal to
+     pair_vo_batched's and to run_sequence's on the same 33 frames and draws
+     bit for bit), the kernels at its shapes (64 frames, the match at
+     P = 32) against their twins, the edge-sharded pose_graph.optimize on
+     phase 5's graph and run_ba_distributed on phase 6's windows against
+     their one-device forms, warm walls and the NCCL all_reduce latency;
+     M2, two spawned ranks sharing cuda:0 over gloo on CUDA tensors: M1's
+     three calls held to like-for-like references made in M1 (see the
+     constants), the gloo all_reduce latency, and
+     run_experiment(backend="pose_graph") on the loop (pg_mesh_devices 2,
+     phase 5's VO chain and loop pairs, poses against phase 5's backend); M3,
+     cli.scaling --spawn 2 --ba at 1440x1080 as one JSON line
+     {"scaling": ...} (the cost of the process boundary on one card, not
+     scaling across cards); then one JSON line {"mesh": ...};
+  11. with --profile only: each stage of run_sequence, pose_graph_trajectory
      and refine_trajectory timed alone (host clock, synchronised) and
      torch.profiler over warm runs of the first two (CUDA kernels per run,
      device busy ms, device idle share, the top kernels by device time and,
      for run_sequence, the top aten ops by count), printed as one JSON line
      {"profile": {...}}.
 Then one JSON line with the per-kernel results (`launches` from phase 7's
-run, `launches_by_path` from phases 4-9 ("cli": phase I's run of
-cli.run_experiment on the converted bag), each run with the counts set to 0
-just before it; "online" per push, counted at the graph's capture), and
+run, `launches_by_path` from phases 4-10 ("cli": phase I's run of
+cli.run_experiment on the converted bag; "mesh": M1's shard_pair_vo), each
+run with the counts set to 0 just before it; "online" per push, counted at
+the graph's capture), and
 last the line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a GPU, or without the rest of the
@@ -220,6 +238,33 @@ JAX_FLOAT_N_MATCHES = {
 # chained absolute poses. Pushes timed: ONLINE_TIMED warm pushes each way.
 ONLINE_POSE_TOL = 1.2e-2
 ONLINE_TIMED = 20
+
+# Phase M: the multi-device layer on the one card. M1 runs a world of one
+# rank over NCCL (its collectives really run); M2 two spawned ranks sharing
+# cuda:0 over gloo on CUDA tensors (NCCL refuses two ranks on one card); M3
+# cli.scaling --spawn 2. Pair VO on the loop's first MESH_PAIRS pairs. M1's
+# rels equal pair_vo_batched's and run_sequence's bit for bit; its
+# edge-sharded PCG is held within MESH_PCG_TOL (C.2's index_add_ tolerance)
+# and its distributed BA within MESH_BA_POSE_TOL / MESH_BA_POINT_TOL (the
+# reference's own, tests/test_distributed_ba.py) of their one-device forms.
+# M2 is held to M1, and like for like where a 2-rank run changes the
+# arithmetic: the card's pair VO depends on the batch size (each rank runs
+# B/2 pairs: held bit for bit to pair_vo_batched on those halves; the halves
+# differ from one batch by 9.96e-3); a BA window's poses move under a
+# reordering of its landmark sums by up to 1.17e-2 on phase 6's windows (each
+# held within MESH_BA_POSE_TOL or twice its own reversed-order difference,
+# and its cost within MESH_BA_COST_RTOL, the reference's cost tolerance); the
+# PCG within MESH_PCG_TOL of the one-device optimize, and M2's run_experiment
+# within RESUME_POSE_TOL of phase 5's backend on phase 5's VO chain (the
+# figures of chip_smoke.py runs on an NVIDIA H100 80GB HBM3, 700.00 W).
+MESH_PAIRS = 32
+MESH_PCG_TOL = 1e-4
+MESH_BA_POSE_TOL = 2e-3
+MESH_BA_POINT_TOL = 2e-2
+MESH_BA_COST_RTOL = 0.05
+MESH_ALLREDUCE_REPS = 100
+MESH_CHILD_TIMEOUT_S = 300
+MESH_SCALING_TIMEOUT_S = 600
 
 REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
@@ -494,9 +539,11 @@ def match_case(label: str, da, db, va, vb) -> dict:
     err = check_match(label, *args)
     p, k = args[0].shape[0], args[0].shape[1]
     ms = device_ms(lambda: cuda_match.match_reductions_cuda(*args))
+    plain_ms = device_ms(lambda: cuda_match.match_reductions_plain(*args), reps=3, warmup=1)
     b_ms = match_bound(p, k)[0]
-    log(f"match {label} P={p} K={k}: kernel {ms:.4f} ms, int8 bound {b_ms:.4f} ms ({b_ms / ms:.3f})")
-    return dict(p=p, k=k, ms=ms, bound_ms=b_ms, share=b_ms / ms, max_abs_err=err)
+    log(f"match {label} P={p} K={k}: kernel {ms:.4f} ms, int8 bound {b_ms:.4f} ms ({b_ms / ms:.3f}), "
+        f"plain {plain_ms:.4f} ms")
+    return dict(p=p, k=k, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, share=b_ms / ms, max_abs_err=err)
 
 
 def phase_kernels(seq):
@@ -1752,6 +1799,342 @@ def phase_online(seq, none_traj, kernels) -> dict:
                 n_matches=nm.tolist())
 
 
+def mesh_inputs(seq):
+    """Phase M's pair-VO inputs: frames 0-MESH_PAIRS of the loop, undistorted
+    on the current card, and the args of (shard_)pair_vo_batched with
+    VOConfig()."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+
+    n = MESH_PAIRS + 1
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames[:n])
+    K = pipeline.effective_K(seq).astype(np.float32)
+    corners = np.nan_to_num(pipeline.effective_marker_corners(seq, K)[:n]).astype(np.float32)
+    present = np.asarray(seq.marker_present[:n])
+    args = (frames[:-1], frames[1:], corners[:-1], corners[1:], present[:-1] & present[1:], K,
+            seq.real_marker_length, VOConfig())
+    return frames, corners, present, args
+
+
+def recorded_ba_windows(ba: dict) -> list:
+    """Phase 6's real BA windows: refine_trajectory rerun on its inputs with
+    run_ba wrapped to record every window it solves, with its config."""
+    from droplet_visual_odometry_tpu_torch.backend import refine
+
+    d, windows, run_ba = ba["inputs"], [], refine.ba.run_ba
+
+    def record(window, cfg):
+        windows.append((window, cfg))
+        return run_ba(window, cfg)
+
+    refine.ba.run_ba = record
+    try:
+        refine.refine_trajectory(*d["args"], **d["kw"])
+    finally:
+        refine.ba.run_ba = run_ba
+    return windows
+
+
+def allreduce_ms(rows: int, device) -> float:
+    """Mean host wall (synchronised) of one all_reduce of a (rows, 6) f32
+    tensor on the card over the current default group: the PCG's collective."""
+    import torch.distributed as dist
+
+    t = torch.zeros((rows, 6), device=device)
+    for _ in range(5):
+        dist.all_reduce(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_ALLREDUCE_REPS):
+        dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / MESH_ALLREDUCE_REPS * 1e3
+
+
+def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
+    """M1, a world of one rank over NCCL on cuda:0 (the process group is up):
+    shard_pair_vo on MESH_PAIRS pairs of the loop with VOConfig() and seeded
+    draws against pair_vo_batched and run_sequence on the same frames and
+    draws (bit for bit); the kernels at the path's shapes against their
+    twins; the edge-sharded optimize on phase 5's graph and
+    run_ba_distributed on phase 6's windows against their one-device forms;
+    warm walls and the NCCL all_reduce latency. Also the references M2 is
+    held to: each rank's half batch through pair_vo_batched, and each BA
+    window's own sensitivity to the order of its landmark sums (run_ba with
+    the landmarks reversed)."""
+    import torch.distributed as dist
+
+    from droplet_visual_odometry_tpu_torch.backend import ba as ba_mod
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.estimation.vo import run_sequence
+    from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, launch, sharding
+
+    mesh = launch.global_mesh()
+    if (dist.get_backend(), mesh.size, mesh.rank) != ("nccl", 1, 0):
+        raise AssertionError(f"M1 wants a one-rank NCCL world, got {dist.get_backend()} {mesh}")
+    frames, corners, present, args = mesh_inputs(loop_seq)
+    cfg = args[-1]
+    u_hyp, u_lo = sharding.ransac_draws(MESH_PAIRS, cfg, SEED, mesh.device)
+    draws = dict(u_hyp=u_hyp, u_lo=u_lo)
+    reset_launches()
+    rels = sharding.shard_pair_vo(mesh, *args, **draws)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}")
+    if launches["fast_score"] != cfg.n_levels or launches["orb_describe"] != cfg.n_levels:
+        raise AssertionError(f"expected {cfg.n_levels} FAST and describe launches (the 2B frames, one per level)")
+    if launches["hamming_match"] < 1:
+        raise AssertionError("the match kernel never launched on the mesh path")
+    if rels.shape != (MESH_PAIRS, 4, 4) or not bool(torch.isfinite(rels).all()):
+        raise AssertionError(f"shard_pair_vo rels {tuple(rels.shape)}, finite {bool(torch.isfinite(rels).all())}")
+    plain = sharding.pair_vo_batched(*args, **draws)
+    traj = run_sequence(frames, corners, present, loop_seq.marker_poses[0], args[5], args[6], cfg, **draws)
+    if not (torch.equal(rels, plain) and torch.equal(rels, traj.rel_poses)):
+        raise AssertionError(f"shard_pair_vo differs from pair_vo_batched by {float((rels - plain).abs().max())}, "
+                             f"from run_sequence by {float((rels - traj.rel_poses).abs().max())}")
+    # Each rank of M2 runs half the pairs: the same pairs through pair_vo_batched at that batch size.
+    h = MESH_PAIRS // 2
+    halves = torch.cat([sharding.pair_vo_batched(*(a[sl] for a in args[:5]), *args[5:], u_hyp=u_hyp[sl],
+                                                 u_lo=u_lo[sl]) for sl in (slice(0, h), slice(h, None))])
+    half_diff = float((halves - rels).abs().max())
+    log(f"M1 rels equal to pair_vo_batched's and to run_sequence's on the same {MESH_PAIRS + 1} frames and draws, "
+        f"bit for bit; the same pairs in two batches of {h}: max abs difference {half_diff!r} from one batch of "
+        f"{MESH_PAIRS} (the card's arithmetic depends on the batch size)")
+
+    # The kernels at the path's shapes: FAST and describe on the 2B frames, the match at P = B.
+    fast_m, desc_m = frontend_levels(torch.cat([args[0], args[1]]), cfg.n_keypoints, "mesh pairs")
+    feats = detect_and_describe_batch(torch.cat([args[0], args[1]]), k=cfg.n_keypoints)
+    b = MESH_PAIRS
+    kernels["fast_score"]["mesh_pairs"] = frontend_row(fast_m)
+    kernels["orb_describe"]["mesh_pairs"] = frontend_row(desc_m)
+    kernels["hamming_match"]["mesh_pairs"] = match_case("mesh pairs", feats.desc[:b], feats.desc[b:],
+                                                        feats.valid[:b], feats.valid[b:])
+
+    graph, pg_cfg = pg["graph"], pg["inputs"]["cfg"].pg
+    single = pose_graph.optimize(graph, pg_cfg)
+    sharded = pose_graph.optimize(graph, pg_cfg, mesh=mesh)
+    pcg_diff = float((sharded.poses - single.poses).abs().max())
+    if pcg_diff > MESH_PCG_TOL or not float(sharded.final_cost) < float(sharded.initial_cost):
+        raise AssertionError(f"edge-sharded optimize {pcg_diff} from the plain one, cost {float(sharded.final_cost)}")
+
+    windows = recorded_ba_windows(ba)
+    if not windows:
+        raise AssertionError("phase 6's run solved no BA window")
+    ba_rows, ba_single = [], []
+    for i, (window, wcfg) in enumerate(windows):
+        one, dres = ba_mod.run_ba(window, wcfg), distributed_ba.run_ba_distributed(mesh, window, wcfg)
+        rv = torch.arange(window.points.shape[0] - 1, -1, -1, device=window.points.device)
+        flipped = ba_mod.run_ba(ba_mod.BAWindow(window.poses, window.points[rv], window.obs_uv[:, rv],
+                                                window.obs_mask[:, rv], window.K), wcfg)
+        ba_single.append(one)
+        pose_d = float((dres.poses - one.poses).abs().max())
+        point_d = float((dres.points[: window.points.shape[0]] - one.points).abs().max())
+        if pose_d > MESH_BA_POSE_TOL or point_d > MESH_BA_POINT_TOL:
+            raise AssertionError(f"run_ba_distributed window {i}: poses {pose_d}, points {point_d} from run_ba")
+        ba_rows.append(dict(landmarks=int(window.points.shape[0]), pose_diff=pose_d, point_diff=point_d,
+                            reversed_landmarks_pose_diff=float((flipped.poses - one.poses).abs().max()),
+                            ms=wall_ms(lambda: distributed_ba.run_ba_distributed(mesh, window, wcfg), reps=3),
+                            run_ba_ms=wall_ms(lambda: ba_mod.run_ba(window, wcfg), reps=3)))
+    times = dict(
+        shard_pair_vo_ms=wall_ms(lambda: sharding.shard_pair_vo(mesh, *args, **draws), reps=3),
+        pair_vo_batched_ms=wall_ms(lambda: sharding.pair_vo_batched(*args, **draws), reps=3),
+        optimize_mesh_ms=wall_ms(lambda: pose_graph.optimize(graph, pg_cfg, mesh=mesh), reps=3),
+        optimize_ms=wall_ms(lambda: pose_graph.optimize(graph, pg_cfg), reps=3),
+        nccl_allreduce_ms=allreduce_ms(int(graph.poses.shape[0]), mesh.device),
+    )
+    log(f"M1 edge-sharded optimize on phase 5's graph ({tuple(graph.poses.shape)[0]} nodes, "
+        f"{graph.edge_i.shape[0]} edges): poses {pcg_diff:.3e} from the plain optimize (tolerance {MESH_PCG_TOL}); "
+        f"run_ba_distributed on phase 6's {len(windows)} windows: poses {max(r['pose_diff'] for r in ba_rows):.3e}, points "
+        f"{max(r['point_diff'] for r in ba_rows):.3e} from run_ba (tolerances {MESH_BA_POSE_TOL} / "
+        f"{MESH_BA_POINT_TOL}); warm walls {json.dumps(times)}; BA per window {json.dumps(ba_rows)}")
+    return dict(launches=launches, halves=halves, pcg_poses=single.poses, ba_single=ba_single, windows=windows,
+                graph=graph, pg_cfg=pg_cfg, draws=draws,
+                checks=dict(rels_equal_pair_vo_batched_and_run_sequence=True, rels_two_batches_vs_one=half_diff,
+                            pcg_pose_diff=pcg_diff, ba=ba_rows),
+                times=times)
+
+
+def mesh_rank(rank: int, tmp: str) -> None:
+    """M2's rank (a spawned process): two ranks share cuda:0 over gloo on CUDA
+    tensors. Repeats M1's three calls on the inputs M1 saved, times the gloo
+    all_reduce, runs run_experiment(backend="pose_graph") on the loop (its
+    PCG sharded over both ranks by mesh="auto") and saves its results."""
+    import torch.distributed as dist
+
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.data import sequence
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, launch, sharding
+
+    launch.initialize(f"file://{os.path.join(tmp, 'store')}", 2, rank, device="cuda:0", backend="gloo")
+    try:
+        inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        seq = sequence.load(os.path.join(tmp, "loop.npz"))
+        mesh = launch.global_mesh(device="cuda:0")
+        out = {"mesh": [mesh.size, mesh.rank, str(mesh.device), dist.get_backend()]}
+        cuda = lambda ts: type(ts)(*(t.to(mesh.device) for t in ts))
+        _, _, _, args = mesh_inputs(seq)
+        draws = {k: v.to(mesh.device) for k, v in inp["draws"].items()}
+        out["rels"] = sharding.shard_pair_vo(mesh, *args, **draws).cpu()
+        res = pose_graph.optimize(cuda(inp["graph"]), inp["pg_cfg"], mesh=mesh)
+        out["pcg"] = dict(poses=res.poses.cpu(), final_cost=float(res.final_cost))
+        out["ba"] = []
+        for w, c in inp["windows"]:
+            r = distributed_ba.run_ba_distributed(mesh, cuda(w), c)
+            out["ba"].append(dict(poses=r.poses.cpu(), final_cost=float(r.final_cost)))
+        out["gloo_allreduce_ms"] = allreduce_ms(int(inp["graph"].poses.shape[0]), mesh.device)
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            res = pipeline.run_experiment(seq, VOConfig(scale_mode="hold"), out_dir, SEED, backend="pose_graph",
+                                          device="cuda:0")
+            torch.cuda.synchronize()
+            out["run_experiment"] = dict(wall_s=time.perf_counter() - t0, info=res.backend_info, vo_abs=res.vo_abs,
+                                         vo_chain=np.asarray(res.trajectory.abs_poses), ate_rmse=res.ate.rmse)
+        torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two_ranks(loop_seq, pg: dict, m1: dict) -> dict:
+    """M2: spawn two ranks on cuda:0 over gloo (mesh_rank), each within
+    MESH_CHILD_TIMEOUT_S, and hold them to M1: the rels to each rank's half
+    batch bit for bit, the PCG poses to the one-device optimize within
+    MESH_PCG_TOL, each BA window's poses within MESH_BA_POSE_TOL or twice its
+    own landmark-order sensitivity and its cost within MESH_BA_COST_RTOL;
+    run_experiment with pg_mesh_devices 2, phase 5's VO chain bit for bit
+    and loop pairs, and poses within RESUME_POSE_TOL of phase 5's backend
+    on that chain; both ranks' replicated results equal bit for bit."""
+    import multiprocessing
+
+    from droplet_visual_odometry_tpu_torch.backend import refine
+    from droplet_visual_odometry_tpu_torch.data import sequence
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+
+    cpu = lambda ts: type(ts)(*(t.cpu() for t in ts))
+    with tempfile.TemporaryDirectory() as tmp:
+        sequence.save(os.path.join(tmp, "loop.npz"), loop_seq)
+        torch.save(dict(draws={k: v.cpu() for k, v in m1["draws"].items()}, graph=cpu(m1["graph"]),
+                        pg_cfg=m1["pg_cfg"], windows=[(cpu(w), c) for w, c in m1["windows"]]),
+                   os.path.join(tmp, "inputs.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, tmp)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, MESH_CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"M2 ranks exited {codes} (a timeout after {MESH_CHILD_TIMEOUT_S} s is a kill)")
+        wall_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"out_{r}.pt"), weights_only=False) for r in range(2)]
+
+    # Phase 5's backend on phase 5's VO chain, on one device: what M2's run is held to.
+    d = pg["inputs"]
+    ref, _ = refine.pose_graph_trajectory(d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"],
+                                          loop_seq.marker_present, d["K"], d["L"], VOConfig(scale_mode="hold"),
+                                          d["cfg"], pair_scale_ok=d["traj"].scale_ok)
+    ba_tol = [max(MESH_BA_POSE_TOL, 2 * r["reversed_landmarks_pose_diff"]) for r in m1["checks"]["ba"]]
+    rows = []
+    for r, o in enumerate(outs):
+        run = o["run_experiment"]
+        row = dict(
+            mesh=o["mesh"],
+            rels_vs_halves=float((o["rels"] - m1["halves"].cpu()).abs().max()),
+            pcg_vs_m1=float((o["pcg"]["poses"] - m1["pcg_poses"].cpu()).abs().max()),
+            ba_pose_diff=[float((b["poses"] - s.poses.cpu()).abs().max()) for b, s in zip(o["ba"], m1["ba_single"])],
+            ba_cost_rdiff=[abs(b["final_cost"] - float(s.final_cost)) / float(s.final_cost)
+                           for b, s in zip(o["ba"], m1["ba_single"])],
+            gloo_allreduce_ms=o["gloo_allreduce_ms"],
+            pg_mesh_devices=run["info"]["pg_mesh_devices"],
+            loop_pairs_equal=run["info"]["loop_pairs"] == pg["info"]["loop_pairs"],
+            vo_chain_vs_phase5=float(np.abs(run["vo_chain"] - np.asarray(d["traj"].abs_poses)).max()),
+            poses_vs_phase5=float(np.abs(run["vo_abs"] - ref).max()),
+            ate_rmse=run["ate_rmse"], run_experiment_s=run["wall_s"],
+        )
+        rows.append(row)
+        log(f"M2 rank {r}: {json.dumps(row)}")
+        if row["mesh"] != [2, r, "cuda:0", "gloo"]:
+            raise AssertionError(f"M2 rank {r} mesh {row['mesh']}")
+        if row["rels_vs_halves"] != 0.0 or row["pcg_vs_m1"] > MESH_PCG_TOL:
+            raise AssertionError(f"M2 rank {r} disagrees with M1: {row}")
+        if any(d_ > t for d_, t in zip(row["ba_pose_diff"], ba_tol)) or max(row["ba_cost_rdiff"]) > MESH_BA_COST_RTOL:
+            raise AssertionError(f"M2 rank {r} BA against run_ba: {row['ba_pose_diff']} (tolerances {ba_tol}), "
+                                 f"costs {row['ba_cost_rdiff']}")
+        if row["pg_mesh_devices"] != 2 or not row["loop_pairs_equal"] or row["vo_chain_vs_phase5"] != 0.0:
+            raise AssertionError(f"M2 rank {r} run_experiment: {row}; loop pairs {run['info']['loop_pairs']} vs "
+                                 f"phase 5's {pg['info']['loop_pairs']}")
+        if row["poses_vs_phase5"] > RESUME_POSE_TOL:
+            raise AssertionError(f"M2 rank {r} refined poses {row['poses_vs_phase5']} from phase 5's backend")
+    same = (torch.equal(outs[0]["pcg"]["poses"], outs[1]["pcg"]["poses"])
+            and all(torch.equal(a["poses"], b["poses"]) for a, b in zip(outs[0]["ba"], outs[1]["ba"]))
+            and np.array_equal(outs[0]["run_experiment"]["vo_abs"], outs[1]["run_experiment"]["vo_abs"]))
+    log(f"M2 ranks hold the same replicated results bit for bit: {same}")
+    if not same:
+        raise AssertionError("M2's two ranks disagree on replicated results")
+    return dict(ranks=rows, ranks_equal=same, ba_pose_tolerances=ba_tol, wall_s=wall_s)
+
+
+def mesh_scaling() -> dict:
+    """M3: cli.scaling --spawn 2 --ba --total-devices 2 at 1440x1080 on the
+    card: a 1-rank and a 2-rank gloo run over the same workload. On one card
+    the ratio is the cost of the process boundary, not scaling across cards."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "droplet_visual_odometry_tpu_torch.cli.scaling", "--spawn", "2", "--ba",
+           "--total-devices", "2", "--height", "1080", "--width", "1440"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here] + ([os.environ["PYTHONPATH"]]
+                                                                 if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here, env=env, timeout=MESH_SCALING_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.scaling --spawn 2 exited {proc.returncode}: {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(report["workloads"]) != {"pair_vo", "distributed_ba"}:
+        raise AssertionError(f"cli.scaling report has workloads {sorted(report['workloads'])}")
+    report["label"] = ("2 ranks sharing one card over gloo against 1 rank: the cost of the process boundary, "
+                      "not scaling across cards")
+    report["wall_s"] = time.perf_counter() - t0
+    return report
+
+
+def phase_mesh(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
+    """Phase M, the multi-device layer on one card: M1 (a world of one rank
+    over NCCL), M2 (two ranks sharing cuda:0 over gloo) and M3
+    (cli.scaling --spawn 2). Each process group is destroyed at its end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from droplet_visual_odometry_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not launch.initialize(f"127.0.0.1:{port}", 1, 0):
+        raise AssertionError("launch.initialize brought up no process group")
+    try:
+        m1 = mesh_world_one(loop_seq, pg, ba, kernels)
+    finally:
+        dist.destroy_process_group()
+    m2 = mesh_two_ranks(loop_seq, pg, m1)
+    log(f"M2 gloo all_reduce of ({int(m1['graph'].poses.shape[0])}, 6) f32 on CUDA tensors "
+        f"{[r['gloo_allreduce_ms'] for r in m2['ranks']]} ms against NCCL's {m1['times']['nccl_allreduce_ms']:.4f} ms (M1)")
+    m3 = mesh_scaling()
+    log(json.dumps({"scaling": m3}))
+    return dict(launches=m1["launches"], m1=dict(checks=m1["checks"], times=m1["times"]), m2=m2,
+                m3_cross_process_efficiency={k: v["cross_process_efficiency"] for k, v in m3["workloads"].items()},
+                wall_s=time.perf_counter() - t0)
+
+
 def device_profile(call, runs: int, top: int) -> tuple[dict, list]:
     """torch.profiler over `runs` warm calls: host ms per run, CUDA kernels
     per run, device busy ms per run, device idle share and the top kernels
@@ -1865,6 +2248,8 @@ def main() -> int:
     log(json.dumps({"float_frontends": float_modes}))
     online = phase_online(seq, none_traj, kernels)
     log(json.dumps({"online": online}))
+    mesh = phase_mesh(loop_seq, pg, ba, kernels)
+    log(json.dumps({"mesh": mesh}))
     if opts.profile:
         prof = phase_profile(seq)
         prof["pose_graph"] = profile_pose_graph(loop_seq, pg)
@@ -1875,7 +2260,7 @@ def main() -> int:
     # launches_by_path gives each path's own run, the counts set to 0 just before it.
     # "online" is per push: the launches captured in the push's graph, which every replay runs.
     by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"],
-               "cli": ingest["launches"], "online": online["launches_per_push"],
+               "cli": ingest["launches"], "online": online["launches_per_push"], "mesh": mesh["launches"],
                **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
     rows = [
         dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],

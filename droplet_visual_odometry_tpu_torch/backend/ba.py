@@ -111,27 +111,36 @@ def _build_normal_blocks(w: BAWindow, poses, points, huber_px: float, min_depth:
     return Hcc, Hll, Hcl, bc, bl
 
 
-def schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """Solve the damped normal equations by the Schur complement on the
-    landmarks. Returns (pose twists (W, 6), landmark steps (L, 3))."""
-    Wn, L = Hcl.shape[0], Hcl.shape[1]
-    dt, dev = Hll.dtype, Hll.device
-    I3 = torch.eye(3, dtype=dt, device=dev)
-    I6 = torch.eye(6, dtype=dt, device=dev)
+def _eliminate_landmarks(Hll, Hcl, bl, lam):
+    """The landmark side of the damped Schur complement: Hll^-1 (L, 3, 3)
+    by the unrolled Cholesky, and the sums over landmarks that reduce the
+    camera system, S_off = sum_l Hcl Hll^-1 Hlc (W, W, 6, 6) and
+    rhs_corr = sum_l Hcl Hll^-1 bl (W, 6). Sums over landmarks add up
+    across landmark shards (parallel/distributed_ba.py)."""
+    L = Hcl.shape[1]
+    I3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     # LM damping, scaled by the diagonal.
     Hll_d = Hll + lam * I3 * torch.clamp(torch.diagonal(Hll, dim1=-2, dim2=-1), min=1e-6)[..., None] * I3
-    Hcc_d = Hcc + lam * I6 * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6)[..., None] * I6
-
     # Hll^-1 by the unrolled Cholesky, solved against the columns of I.
     Lc = linalg.cholesky_unrolled(Hll_d, eps=1e-9)
     Hll_inv = torch.stack([linalg.cholesky_solve(Lc, I3[i].expand(L, 3)) for i in range(3)], dim=-1)
-
-    # Reduced camera system: S[w1, w2] = delta*Hcc - sum_l Hcl Hll^-1 Hlc.
     HclHinv = torch.einsum("wlkm,lmn->wlkn", Hcl, Hll_inv)
-    S = -torch.einsum("wlkn,vlmn->wvkm", HclHinv, Hcl)
+    S_off = torch.einsum("wlkn,vlmn->wvkm", HclHinv, Hcl)
+    rhs_corr = torch.einsum("wlkn,ln->wk", HclHinv, bl)
+    return Hll_inv, S_off, rhs_corr
+
+
+def _solve_cameras(Hcc, bc, S_off, rhs_corr, lam, n_fixed: int) -> torch.Tensor:
+    """The reduced camera system S = delta*Hcc - S_off, rhs = bc - rhs_corr,
+    gauge-fixed on the first n_fixed poses and solved densely: (W, 6)."""
+    Wn = Hcc.shape[0]
+    dt, dev = Hcc.dtype, Hcc.device
+    I6 = torch.eye(6, dtype=dt, device=dev)
+    Hcc_d = Hcc + lam * I6 * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6)[..., None] * I6
+    S = -S_off
     diag = torch.arange(Wn, device=dev)
     S[diag, diag] += Hcc_d
-    rhs = bc - torch.einsum("wlkn,ln->wk", HclHinv, bl)
+    rhs = bc - rhs_corr
 
     if n_fixed > 0:
         # Gauge: zero the first n_fixed poses' rows and columns, identity on their diagonal blocks.
@@ -143,12 +152,21 @@ def schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed: int = 1) -> tuple[torch.Ten
     S_dense = S.permute(0, 2, 1, 3).reshape(Wn * 6, Wn * 6)
     eye = torch.eye(Wn * 6, dtype=dt, device=dev)
     # solve_ex: no error check, so no read back to the host.
-    dc = torch.linalg.solve_ex(S_dense + 1e-9 * eye, rhs.reshape(-1, 1))[0].reshape(Wn, 6)
+    return torch.linalg.solve_ex(S_dense + 1e-9 * eye, rhs.reshape(-1, 1))[0].reshape(Wn, 6)
 
-    # Back-substitute the landmarks: dx = Hll^-1 (bl - Hlc dc).
+
+def _back_substitute(Hcl, Hll_inv, bl, dc) -> torch.Tensor:
+    """Landmark steps dx = Hll^-1 (bl - Hlc dc): (L, 3)."""
     Hlc_dc = torch.einsum("wlkm,wk->lm", Hcl, dc)
-    dx = torch.einsum("lmn,ln->lm", Hll_inv, bl - Hlc_dc)
-    return dc, dx
+    return torch.einsum("lmn,ln->lm", Hll_inv, bl - Hlc_dc)
+
+
+def schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve the damped normal equations by the Schur complement on the
+    landmarks. Returns (pose twists (W, 6), landmark steps (L, 3))."""
+    Hll_inv, S_off, rhs_corr = _eliminate_landmarks(Hll, Hcl, bl, lam)
+    dc = _solve_cameras(Hcc, bc, S_off, rhs_corr, lam, n_fixed)
+    return dc, _back_substitute(Hcl, Hll_inv, bl, dc)
 
 
 def run_ba(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:

@@ -1,5 +1,4 @@
-"""Pose-graph optimisation — port of droplet_visual_odometry_tpu/backend/pose_graph.py
-(single device).
+"""Pose-graph optimisation — port of droplet_visual_odometry_tpu/backend/pose_graph.py.
 
 Nodes are keyframe poses (world_T_node), edges relative-pose measurements.
 Gauss-Newton on the se(3) residual r_e = log(Z_e^-1 X_i^-1 X_j) under left
@@ -29,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
+from droplet_visual_odometry_tpu_torch.parallel.sharding import broadcast, local_shard, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +167,7 @@ def _solve_dense(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, dam
     return torch.linalg.solve_ex(Hd, b.reshape(M * 6) * mask).result.reshape(M, 6)
 
 
-def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: PoseGraphConfig) -> torch.Tensor:
+def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: PoseGraphConfig, mesh=None) -> torch.Tensor:
     b, D = _assemble_rhs_diag(M, graph, B, g)
     gm = _gauge_mask(M, B)
     b = b * gm
@@ -177,16 +177,39 @@ def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: 
     D = torch.cat([eye6[None], (D + cfg.damping * eye6)[1:]])
     Minv = torch.linalg.inv_ex(D).inverse  # inv_ex: no host check of the factorisation
 
+    if mesh is None:
+        hx_edges = lambda x: _hx_local(B, graph.edge_i, graph.edge_j, x)
+    else:
+        # The rhs and the preconditioner are replicated, but index_add_ sums
+        # in no fixed order on the card: every rank takes rank 0's, so all
+        # ranks run the same CG iterates bit for bit. Pad E to a multiple of
+        # the mesh size with zero-weight edges between node 0 and itself
+        # (B = 0: they add nothing); each rank takes its contiguous block of
+        # edges, and the edge-local products are summed over the mesh inside
+        # every CG step.
+        b, Minv = broadcast(mesh, b, Minv)
+        pad = (-B.shape[0]) % mesh.size
+        zi = torch.zeros(pad, dtype=graph.edge_i.dtype, device=B.device)
+        Bs = local_shard(mesh, torch.cat([B, torch.zeros((pad, 6, 6), dtype=B.dtype, device=B.device)]))
+        eis = local_shard(mesh, torch.cat([graph.edge_i, zi]))
+        ejs = local_shard(mesh, torch.cat([graph.edge_j, zi]))
+        hx_edges = lambda x: psum(mesh, _hx_local(Bs, eis, ejs, x))
+
     def matvec(x):
         x = x * gm
-        return _hx_local(B, graph.edge_i, graph.edge_j, x) * gm + cfg.damping * x
+        return hx_edges(x) * gm + cfg.damping * x
 
     return _pcg(matvec, b, Minv, cfg.cg_iters, cfg.cg_tol)
 
 
-def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig()) -> PoseGraphResult:
+def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
     """Gauss-Newton with the first node held fixed (gauge), on the graph's
-    device; a step is kept only if it lowers the cost."""
+    device; a step is kept only if it lowers the cost.
+
+    mesh: an optional parallel.sharding.Mesh (every rank of it calls
+    optimize on the same graph): the PCG's Hessian-vector products run
+    edge-sharded over it, one all_reduce of (M, 6) per CG step. The CG stop
+    test stays on the device, so every rank issues the same collectives."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
     initial = cost(graph)
@@ -197,7 +220,7 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig()) -> Pose
         if cfg.solver == "dense":
             dx = _solve_dense(M, graph, B, g, cfg.damping)
         else:
-            dx = _solve_pcg(M, graph, B, g, cfg)
+            dx = _solve_pcg(M, graph, B, g, cfg, mesh)
         # b accumulated -grad blocks (b_i = +J_j^T W r = -grad_i), so dx is
         # already the descent step.
         new_poses = se3.se3_exp(dx) @ poses

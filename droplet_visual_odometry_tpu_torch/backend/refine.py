@@ -18,12 +18,14 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from droplet_visual_odometry_tpu_torch.backend import ba, keyframes, loop_closure, pose_graph, tracks
 from droplet_visual_odometry_tpu_torch.estimation.scale import canonical_corners
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
 from droplet_visual_odometry_tpu_torch.frontend.matcher import Matches
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
+from droplet_visual_odometry_tpu_torch.parallel import sharding
 
 
 def _frame_fetcher(frames):
@@ -279,12 +281,20 @@ def pose_graph_trajectory(
     cfg: PoseGraphRefineConfig | None = None,
     pair_scale_ok: np.ndarray | None = None,  # (N-1,) live-marker-scale bits
     draws=None,  # replayed verification uniforms, see loop_closure.find_loop_closures
+    mesh="auto",  # parallel.sharding.Mesh | None | "auto"
 ) -> tuple[np.ndarray, dict]:
     """Keyframes -> loop-closure retrieval/verification -> pose-graph
-    optimisation -> trajectory correction, on one device.
+    optimisation -> trajectory correction, on the frames' device.
+
+    mesh: the mesh for the edge-sharded Hessian-vector products inside
+    pose_graph.optimize. "auto" (default) shards over the default process
+    group when torch.distributed is initialised with more than one rank,
+    and runs on one device otherwise; None forces one device. Every rank of
+    the mesh runs the whole call (VO outputs, keyframes and loop closure are
+    replicated); only the product is sharded.
 
     Returns (refined (N, 4, 4) absolute poses, info dict with the reference's
-    keys; pg_mesh_devices is 1: the edge-sharded product is ROADMAP A13).
+    keys; pg_mesh_devices is the mesh's size).
     """
     cfg = cfg or PoseGraphRefineConfig()
     abs_poses = np.asarray(abs_poses, np.float64)
@@ -323,9 +333,15 @@ def pose_graph_trajectory(
     graph = pose_graph.pad_graph(
         graph, pose_graph.next_bucket(M), pose_graph.next_bucket(int(graph.edge_i.shape[0]))
     )
-    res = pose_graph.optimize(graph, cfg.pg)
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be a Mesh, None or 'auto'; got {mesh!r}")
+        mesh = None
+        if sharding.initialised() and dist.get_world_size() > 1:
+            mesh = sharding.make_mesh(axis_name="edges", device=graph.poses.device)
+    res = pose_graph.optimize(graph, cfg.pg, mesh=mesh)
     info["pg_initial_cost"] = float(res.initial_cost)
     info["pg_final_cost"] = float(res.final_cost)
-    info["pg_mesh_devices"] = 1
+    info["pg_mesh_devices"] = 1 if mesh is None else mesh.size
     refined_kf = np.linalg.inv(res.poses[:M].cpu().numpy().astype(np.float64))
     return reanchor_segments(abs_poses, kf_idx, refined_kf), info

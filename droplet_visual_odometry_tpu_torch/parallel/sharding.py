@@ -1,0 +1,220 @@
+"""Multi-device sharding on torch.distributed: the mesh record, its
+collectives, and data-parallel pair VO — port of
+droplet_visual_odometry_tpu/parallel/sharding.py.
+
+The reference shards with jax.sharding over a device mesh (the `frames`
+axis for independent pairs, `landmarks` for distributed BA, `edges` for the
+pose graph's product). Here one process drives one device (the process
+model in parallel/__init__.py): every rank holds the full host copy of the
+inputs, takes its block of the sharded axis, and the replicated results are
+reduced (`psum`) or gathered (`all_gather_rows`) over the mesh's group.
+
+All entry points take an explicit Mesh, so tests run them in spawned gloo
+ranks on the CPU while the card runs them over NCCL.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, two_frame_vo
+from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+from droplet_visual_odometry_tpu_torch.frontend.orb import Features
+from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh of ranks: the counterpart of a jax Mesh with one axis."""
+
+    group: object  # torch.distributed process group; None without one (or outside it)
+    size: int  # devices in the mesh (jax: mesh.devices.size)
+    rank: int  # this process's rank in the group; -1 outside it
+    device: torch.device  # this rank's device
+    axis_name: str = "frames"
+
+    @property
+    def is_member(self) -> bool:
+        return self.rank >= 0
+
+
+def initialised() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank_device(device) -> torch.device:
+    """The resolved device; "cuda" without an index is this process's
+    current card (launch.initialize sets it to cuda:{LOCAL_RANK})."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(n_devices: int | None = None, axis_name: str = "frames", device="cuda") -> Mesh:
+    """1-D mesh over the world's first n_devices ranks (all by default).
+
+    Every rank must call it: a sub-mesh is a new process group, which
+    torch.distributed creates on all ranks at once. A rank outside the
+    sub-mesh gets a mesh with rank -1 and no group. Without an initialised
+    torch.distributed this is a size-1 mesh on `device`."""
+    dev = rank_device(device)
+    if not initialised():
+        if n_devices not in (None, 1):
+            raise ValueError(f"a mesh of {n_devices} devices needs as many ranks: call launch.initialize first")
+        return Mesh(None, 1, 0, dev, axis_name)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh of {n} devices over a world of {world} ranks")
+    group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    if rank >= n:
+        return Mesh(None, n, -1, dev, axis_name)
+    return Mesh(group, n, rank, dev, axis_name)
+
+
+def _require_member(mesh: Mesh) -> None:
+    if not mesh.is_member:
+        raise ValueError(f"this process is outside the mesh of {mesh.size} devices")
+
+
+def psum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The reference's jax.lax.psum over the mesh axis: an all_reduce (sum)
+    of t in place on the mesh's group; a no-op without a group."""
+    if mesh.group is not None:
+        dist.all_reduce(t, group=mesh.group)
+    return t
+
+
+def broadcast(mesh: Mesh, *ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The mesh's rank 0 copies of replicated tensors, on every rank (one
+    broadcast of their packed values); the tensors themselves without a
+    group. A mesh spans the world's first ranks, so its rank 0 is global
+    rank 0."""
+    if mesh.group is None:
+        return ts
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    dist.broadcast(flat, src=0, group=mesh.group)
+    return tuple(p.reshape(t.shape) for p, t in zip(torch.split(flat, [t.numel() for t in ts]), ts))
+
+
+def all_gather_rows(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+    """Every rank's (n, ...) block, concatenated in rank order on every rank:
+    how a sharded jax array reads whole in one process."""
+    if mesh.group is None:
+        return local
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(mesh.size)]
+    dist.all_gather(parts, local, group=mesh.group)
+    return torch.cat(parts)
+
+
+def local_shard(mesh: Mesh, arr, dim: int = 0) -> torch.Tensor:
+    """This rank's contiguous block of a full host copy along `dim`, on its
+    device — the counterpart of the reference's global_array (each process
+    serves the shards it addresses from its own full copy). The length must
+    divide by the mesh size, as a jax NamedSharding requires."""
+    _require_member(mesh)
+    t = torch.as_tensor(arr)
+    n = t.shape[dim]
+    if n % mesh.size:
+        raise ValueError(f"axis of length {n} does not divide over {mesh.size} devices")
+    b = n // mesh.size
+    return t.narrow(dim, mesh.rank * b, b).to(mesh.device)
+
+
+def ransac_draws(n_pairs: int, cfg: VOConfig, seed: int, device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(u_hyp, u_lo) for n_pairs pairs from one torch.Generator on `device`
+    seeded with `seed`, drawn in ransac_essential's order (hypotheses, then
+    the LO rounds): the uniforms run_sequence's generator gives its pairs."""
+    rc = cfg.ransac
+    g = torch.Generator(device=device).manual_seed(seed)
+    u_hyp = torch.rand((n_pairs, rc.n_hypotheses * rc.sample_size), generator=g, device=device)
+    if rc.lo_hypotheses <= 0:
+        return u_hyp, None
+    rounds = 1 if rc.fused_lo_polish else 2
+    u_lo = torch.rand((n_pairs, rounds, rc.lo_hypotheses * rc.lo_sample_size), generator=g, device=device)
+    return u_hyp, u_lo
+
+
+def pair_vo_batched(
+    frames_prev,  # (B, H, W)
+    frames_curr,  # (B, H, W)
+    corners_prev,  # (B, 4, 2)
+    corners_curr,  # (B, 4, 2)
+    marker_valid,  # (B,)
+    K,
+    real_marker_length: float,
+    cfg: VOConfig,
+    seed: int = 0,
+    u_hyp: torch.Tensor | None = None,
+    u_lo: torch.Tensor | None = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Two-frame VO over a batch of B independent pairs -> (B, 4, 4)
+    relative poses. The 2B frames are described in one batch; the RANSAC
+    uniforms come from ransac_draws(B, cfg, seed) or are injected (u_hyp
+    (B, n_hyp*8), u_lo (B, rounds, 128*14)). Shard the B axis over a mesh
+    with shard_pair_vo."""
+    dev = rank_device(device)
+    f32 = lambda a: torch.as_tensor(a).to(dev, torch.float32)
+    fp, fc = f32(frames_prev), f32(frames_curr)
+    b = fp.shape[0]
+    if u_hyp is None:
+        u_hyp, u_lo = ransac_draws(b, cfg, seed, dev)
+    # As in the reference (sharding.py:73-78), the detector takes k, threshold
+    # and arc_length only: cfg.frontend, n_levels, scale_factor and
+    # dog_threshold are ignored, unlike run_sequence (ROADMAP C.3).
+    feats = detect_and_describe_batch(
+        torch.cat([fp, fc]), k=cfg.n_keypoints, threshold=cfg.fast_threshold, arc_length=cfg.fast_arc_length
+    )
+    res = two_frame_vo(
+        Features(*(a[:b] for a in feats)),
+        Features(*(a[b:] for a in feats)),
+        torch.nan_to_num(f32(corners_prev)),
+        torch.nan_to_num(f32(corners_curr)),
+        torch.as_tensor(marker_valid).to(dev, torch.bool),
+        f32(K),
+        real_marker_length,
+        cfg,
+        u_hyp=u_hyp.to(dev),
+        u_lo=None if u_lo is None else u_lo.to(dev),
+    )
+    return res.rel
+
+
+def shard_pair_vo(
+    mesh: Mesh,
+    frames_prev,
+    frames_curr,
+    corners_prev,
+    corners_curr,
+    marker_valid,
+    K,
+    real_marker_length: float,
+    cfg: VOConfig,
+    seed: int = 0,
+    u_hyp: torch.Tensor | None = None,
+    u_lo: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Data-parallel pair VO: rank r runs pairs [r B/D, (r+1) B/D) on its
+    device and every rank gets the full (B, 4, 4) back (one all_gather of
+    B*16 floats). The draws are made for all B pairs on every rank and then
+    sliced, so a pair's draws do not depend on D. Per-pair work is
+    independent: no other collective runs."""
+    _require_member(mesh)
+    b = len(frames_prev)
+    if b % mesh.size:
+        raise ValueError(f"{b} pairs do not divide over {mesh.size} devices")
+    if u_hyp is None:
+        u_hyp, u_lo = ransac_draws(b, cfg, seed, mesh.device)
+    shard = lambda a: local_shard(mesh, a)
+    rel = pair_vo_batched(
+        shard(frames_prev), shard(frames_curr), shard(corners_prev), shard(corners_curr), shard(marker_valid),
+        K, real_marker_length, cfg, u_hyp=shard(u_hyp), u_lo=None if u_lo is None else shard(u_lo),
+        device=mesh.device,
+    )
+    return all_gather_rows(mesh, rel)

@@ -38,6 +38,7 @@ from droplet_visual_odometry_tpu_torch.eval import metrics as tmetrics
 from droplet_visual_odometry_tpu_torch.eval import tum as ttum
 
 from torch_backend_data import LC_KW, LOOP_CFG, RANSAC_KW, REFINE_KW, jax_verify_draws, mask_marker_midrun
+from torch_mp_worker import FixedDraws, run_ranks
 
 torch.set_num_threads(2)
 
@@ -369,6 +370,36 @@ def test_pose_graph_trajectory_agrees(loop_seqs, vo_outputs):
     assert info["pg_final_cost"] < info["pg_initial_cost"] and info["pg_mesh_devices"] == 1
     np.testing.assert_allclose(info["pg_initial_cost"], ref_info["pg_initial_cost"], rtol=0.05)
     np.testing.assert_allclose(out, ref, atol=5e-3)
+
+
+def test_pose_graph_trajectory_on_two_ranks(loop_seqs, vo_outputs, jax_pg_run, tmp_path):
+    """The same VO outputs into pose_graph_trajectory on 2 spawned gloo ranks
+    (mesh="auto": the PCG's product sharded over the default group) and on
+    one device, the reference's verification draws replayed on both:
+    pg_mesh_devices 2 (the reference's run: its 8 CPU devices), loop pairs
+    equal to the reference's; refined poses within 5e-3 of the reference's
+    edge-sharded run (test_pose_graph_trajectory_agrees's hold) and 1e-4 of
+    the port's one-device run (only the order of the edge sums changes)."""
+    o = vo_outputs
+    tvo = convert.vo_config_from_dict(dataclasses.asdict(JVOConfig(scale_mode="hold", ransac=JRansacConfig(**RANSAC_KW))))
+    args = (torch.from_numpy(loop_seqs[1].frames).float(), o["abs_poses"], o["n_inliers"], o["corners"], o["present"],
+            o["K"], o["L"], tvo, _trefine_cfg())
+    recorded = []
+    draws = lambda n: recorded.append(jax_verify_draws(n)) or recorded[-1]
+    one, one_info = trefine.pose_graph_trajectory(*args, pair_scale_ok=o["scale_ok"], draws=draws)
+    assert one_info["pg_mesh_devices"] == 1
+    ranks = run_ranks(tmp_path, ["pg_trajectory"], {
+        "pgt_args": args, "pgt_kwargs": dict(pair_scale_ok=o["scale_ok"], draws=FixedDraws(*recorded[-1]))})
+    ref_info = jax_pg_run.backend_info
+    assert ref_info["pg_mesh_devices"] == 8
+    for r in ranks:
+        info, out = r["pgt_info"], r["pgt_poses"]
+        print(f"2 ranks vs one device {np.abs(out - one).max():.3e}, vs the reference {np.abs(out - jax_pg_run.vo_abs).max():.3e}")
+        assert info["pg_mesh_devices"] == 2
+        assert info["loop_pairs"] == one_info["loop_pairs"] == ref_info["loop_pairs"]
+        assert info["pg_final_cost"] < info["pg_initial_cost"]
+        np.testing.assert_allclose(out, one, atol=1e-4)
+        np.testing.assert_allclose(out, jax_pg_run.vo_abs, atol=5e-3)
 
 
 def test_run_experiment_pose_graph_agrees(loop_seqs, jax_pg_run, tmp_path):

@@ -664,3 +664,87 @@ def test_run_experiment_cli_runs_on_cuda_by_default(cuda_device, tmp_path):
                                               "--out-dir", str(tmp_path / "out")])
     assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
     assert summary["n_frames"] == 8 and np.isfinite(summary["ate_rmse_m"]) and summary["ok_fraction"] == 1.0
+
+
+@pytest.fixture
+def nccl_world_one(cuda_device, tmp_path):
+    """A world of one rank over NCCL on the card (launch.initialize with a
+    file store), torn down after the test."""
+    import torch.distributed as dist
+
+    from droplet_visual_odometry_tpu_torch.parallel import launch
+
+    assert launch.initialize(f"file://{tmp_path / 'store'}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield launch.global_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_pair_vo_on_nccl_world_one_equals_pair_vo_batched(nccl_world_one):
+    """shard_pair_vo over a one-rank NCCL mesh (its all_gather really runs)
+    equals pair_vo_batched on the same frames and draws bit for bit, and
+    describes the 2B frames in one batch: FAST and describe once per
+    pyramid level, the match once."""
+    from droplet_visual_odometry_tpu_torch.parallel import sharding
+
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=9, width=256, height=192, n_landmarks=300))
+    cfg = VOConfig(n_keypoints=256)
+    frames = torch.from_numpy(seq.frames).float()
+    corners = np.nan_to_num(seq.marker_corners)
+    args = (frames[:-1], frames[1:], corners[:-1], corners[1:], seq.marker_present[:-1] & seq.marker_present[1:],
+            seq.camera.K, seq.real_marker_length, cfg)
+    mesh = nccl_world_one
+    assert (mesh.size, mesh.rank, mesh.device) == (1, 0, torch.device("cuda", torch.cuda.current_device()))
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+    rels = sharding.shard_pair_vo(mesh, *args, seed=5)
+    torch.cuda.synchronize()
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert rels.is_cuda and rels.shape == (8, 4, 4) and bool(torch.isfinite(rels).all())
+    assert torch.equal(rels, sharding.pair_vo_batched(*args, seed=5))
+
+
+def _random_pose_graph(device, n=24, seed=0):
+    """A drifting chain with loop edges and full SPD weights, in torch."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.core import se3
+
+    g = torch.Generator().manual_seed(seed)
+    steps = se3.se3_exp(torch.cat([0.1 * torch.randn(n - 1, 3, generator=g), 0.05 * torch.randn(n - 1, 3, generator=g)], 1))
+    true = [torch.eye(4)]
+    for s in steps:
+        true.append(true[-1] @ s)
+    true = torch.stack(true)
+    ei = torch.tensor(list(range(n - 1)) + [0, 2, 5, 3, 8, 1, 11])
+    ej = torch.tensor(list(range(1, n)) + [15, 18, 19, 12, 17, 10, 23])
+    meas = se3.inverse(true[ei]) @ true[ej] @ se3.se3_exp(0.01 * torch.randn(len(ei), 6, generator=g))
+    drift = se3.se3_exp(0.03 * torch.randn(n, 6, generator=g))
+    drift[0] = torch.eye(4)
+    A = torch.randn(len(ei), 6, 6, generator=g)
+    w = A @ A.transpose(-1, -2) / 6 + 0.1 * torch.eye(6)
+    return pose_graph.PoseGraph(*(t.to(device) for t in (true @ drift, ei, ej, meas, w)))
+
+
+def test_edge_sharded_optimize_on_nccl_world_one(nccl_world_one):
+    """optimize(mesh) over a one-rank NCCL mesh (one all_reduce of the
+    edge-local product a CG step) against the plain optimize on the card:
+    poses within 1e-4 (index_add_ sums in no fixed order on the card,
+    ROADMAP C.2), the cost falls; and run_ba_distributed against run_ba:
+    poses 2e-3, points 2e-2 (the reference's distributed-BA tolerances)."""
+    from droplet_visual_odometry_tpu_torch.backend import ba, pose_graph
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba
+
+    mesh = nccl_world_one
+    graph = _random_pose_graph(mesh.device)
+    plain = pose_graph.optimize(graph)
+    sharded = pose_graph.optimize(graph, mesh=mesh)
+    assert float(sharded.final_cost) < float(sharded.initial_cost)
+    np.testing.assert_allclose(sharded.poses.cpu().numpy(), plain.poses.cpu().numpy(), atol=1e-4)
+    window = ba.BAWindow(*(t.to(mesh.device) for t in _ba_window(seed=4, L=121)))
+    single = ba.run_ba(window)
+    dist_res = distributed_ba.run_ba_distributed(mesh, window)
+    assert float(dist_res.final_cost) < 0.1 * float(dist_res.initial_cost)
+    np.testing.assert_allclose(dist_res.poses.cpu().numpy(), single.poses.cpu().numpy(), atol=2e-3)
+    np.testing.assert_allclose(dist_res.points.cpu().numpy(), single.points.cpu().numpy(), atol=2e-2)
