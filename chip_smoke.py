@@ -81,6 +81,23 @@ Phases (any failure raises, so the exit code is non-zero):
      three kernels (none); on PARITY.md's clean scenario (60 frames at
      640x480) run_experiment(backend="none"), its ATE and per-pair
      ratio-match counts held to the JAX package's;
+  8b. the accuracy-parity harness (phase P,
+     droplet_visual_odometry_tpu_torch/parity.py): parity.py's five
+     scenarios at full size (clean, corner_noise_1px, marker_gap over three
+     render seeds, the 200-frame drift_loop, distorted_1440 with the
+     production plumb_bob lens), the reference chain's three variants on
+     the host (OpenCV) and every "ours" row through run_experiment on the
+     card (none, ba, pose_graph and the default pose_graph+hold; sift and
+     surf on clean, phase S's runs, and corner_noise_1px): each port row
+     held within twice the JAX package's seed 0-3 spread of its PARITY.md
+     row (tools/jax_parity_figures.py), and parity.py's two gates (the best
+     port row and the default no worse than the best reference row of this
+     run); the distorted_1440 default row's launch counters (8/8/>=3: the
+     frames and the keyframe stack); FAST and describe on drift_loop's
+     200-frame 640x480 pyramid and the match at P = 199, K = 512 against
+     their twins, timed beside their bounds; one JSON line {"parity": ...}
+     with every row, hold and margin, the phase's wall and the OpenCV
+     version;
   9. OnlineVO (phase O): the bench workload's 24 frames pushed with their
      marker detections, ORB, VOConfig(): every push (one CUDA graph
      replay) equal bit for bit to the same step run op by op, the launches
@@ -117,7 +134,8 @@ Phases (any failure raises, so the exit code is non-zero):
      {"profile": {...}}.
 Then one JSON line with the per-kernel results (`launches` from phase 7's
 run, `launches_by_path` from phases 4-10 ("cli": phase I's run of
-cli.run_experiment on the converted bag; "mesh": M1's shard_pair_vo), each
+cli.run_experiment on the converted bag; "mesh": M1's shard_pair_vo;
+"parity": phase P's distorted_1440 default row), each
 run with the counts set to 0 just before it; "online" per push, counted at
 the graph's capture), and
 last the line {"ok": true, "device": {...}}.
@@ -839,8 +857,9 @@ def profile_pose_graph(seq, pg: dict) -> dict:
     loop run's inputs (host clock, synchronised, median of 7), and
     torch.profiler over two warm calls."""
     from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
-    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult
+    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult, two_frame_vo
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 
     d, feats, cfg = pg["inputs"], pg["feats"], pg["inputs"]["cfg"]
     lc, vo = cfg.lc, VOConfig(scale_mode="hold")
@@ -854,8 +873,14 @@ def profile_pose_graph(seq, pg: dict) -> dict:
     mvalid = torch.as_tensor(seq.marker_present[kf], device="cuda")
     Kt = torch.as_tensor(d["K"], device="cuda")
     vcfg = loop_closure._verify_vo_config(vo, lc)
+    # find_loop_closures' draws: the reference's threefry uniforms, made once and cached.
+    draws = loop_closure.reference_draws(R * n_slot, vcfg.ransac, 0, Kt.device)
+    verify = lambda: loop_closure._verify_candidates(feats, corners, mvalid, Kt, d["L"], vcfg, ca_p, cb_p, *draws)
+    # The same verification drawing from a torch.Generator inside RANSAC, as before the threefry draws.
+    a, b = (torch.as_tensor(c, device="cuda") for c in (ca_p, cb_p))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    verify = lambda: loop_closure._verify_candidates(feats, corners, mvalid, Kt, d["L"], vcfg, ca_p, cb_p, gen)
+    verify_gen = lambda: two_frame_vo(Features(*(t[a] for t in feats)), Features(*(t[b] for t in feats)),
+                                      corners[a], corners[b], mvalid[a] & mvalid[b], Kt, d["L"], vcfg, gen)
     res = VOStepResult(*(t.cpu().numpy().reshape((R, n_slot) + tuple(t.shape[1:])) for t in verify()))
     refined_kf = np.linalg.inv(pose_graph.optimize(pg["graph"], cfg.pg).poses[: d["n_kf"]].cpu().numpy()
                                .astype(np.float64))
@@ -866,6 +891,9 @@ def profile_pose_graph(seq, pg: dict) -> dict:
         "retrieval_counts": lambda: loop_closure._retrieval_counts(feats.desc, feats.valid, ia, ib,
                                                                    lc.match_max_distance),
         "verification": verify,
+        "verification_draws_uncached": lambda: loop_closure.reference_draws.__wrapped__(R * n_slot, vcfg.ransac, 0,
+                                                                                        Kt.device),
+        "verification_torch_generator": verify_gen,
         "host_selection": lambda: (loop_closure._select_candidates(ia, ib, counts, lc),
                                    loop_closure._pick_restarts(res, R, n_slot)),
         "pcg_optimize": lambda: pose_graph.optimize(pg["graph"], cfg.pg),
@@ -1574,13 +1602,6 @@ def phase_ingest(seq, stream: dict, results) -> dict:
                 synthetic_launches=synth_launches, dump_match_images=dump)
 
 
-def float_config(mode: str):
-    """parity.py:run_ours's configuration of the float-descriptor rows."""
-    from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
-
-    return VOConfig(frontend=mode, match_mode="ratio", dog_threshold=0.5)
-
-
 def phase_float(seq) -> dict:
     """Phase S, the SIFT and SURF frontends: on the bench workload, a warm
     run_sequence per mode (wall, frames/s, the device idle share under
@@ -1588,7 +1609,7 @@ def phase_float(seq) -> dict:
     no kernel of its own); on PARITY.md's clean scenario,
     run_experiment(backend="none") with the ATE and the per-pair ratio-match
     counts held to the JAX package's."""
-    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch import parity, pipeline
     from droplet_visual_odometry_tpu_torch.data import synthetic
     from droplet_visual_odometry_tpu_torch.estimation.vo import run_sequence
 
@@ -1598,7 +1619,7 @@ def phase_float(seq) -> dict:
     clean = synthetic.render_sequence(synthetic.SyntheticConfig(**CLEAN_SEQ_CONFIG))
     out = {}
     for mode in FLOAT_MODES:
-        cfg = float_config(mode)
+        cfg = parity.ours_config("marker", mode)
         args = (frames, corners, seq.marker_present, seq.marker_poses[0], K, seq.real_marker_length, cfg)
         reset_launches()
         traj = run_sequence(*args, seed=SEED)
@@ -1627,11 +1648,91 @@ def phase_float(seq) -> dict:
             raise AssertionError(f"{mode} ATE {res.ate.rmse} outside {JAX_FLOAT_ATE_RMSE[mode]} +- {FLOAT_ATE_TOL[mode]}")
         if dev > MATCH_TOL:
             raise AssertionError(f"{mode} match counts deviate {dev:.4f} from the JAX package's")
+        present = np.flatnonzero(clean.marker_present)
         out[mode] = dict(launches=launches, warm_ms=warm, frames_per_s=(n - 1) / warm * 1e3,
+                         clean_parity_row=parity.evaluate(clean, present, res.vo_abs[present]),
                          device_busy_ms=prof["device_busy_ms_per_run"], kernels_per_run=prof["kernels_per_run"],
                          device_idle_share=prof["device_idle_share"], clean_ate_rmse=res.ate.rmse,
                          clean_match_deviation=dev, clean_pairs_equal=int((nm == want).sum()))
     return out
+
+
+def phase_parity(float_modes: dict, results) -> dict:
+    """Phase P, the accuracy-parity harness (droplet_visual_odometry_tpu_torch/
+    parity.py) on the card: parity.py's five scenarios at full size, the
+    reference chain's three variants on the host and every "ours" row through
+    run_experiment on the card; each port row held to its JAX row within
+    twice the JAX seed spread, and parity.py's two gates against the
+    reference rows of this run. The distorted_1440 default row runs first,
+    with the launch counters (FAST and describe once per level on the frames
+    and again on the keyframe stack, the match at least 3 times); phase S's
+    clean-scenario SIFT/SURF runs are its rows there. Then the three kernels
+    at drift_loop's shapes (200 frames of 640x480, the match at P = 199,
+    K = 512) against their twins, timed beside their bounds."""
+    import cv2
+
+    from droplet_visual_odometry_tpu_torch import parity
+    from droplet_visual_odometry_tpu_torch.frontend import features
+
+    t_phase = time.perf_counter()
+    scen = parity.scenarios(quick=False)
+    render_s = time.perf_counter() - t_phase
+    log(f"parity: rendered the five scenarios in {render_s:.1f} s")
+
+    # The shipped default on the production lens, counted.
+    dist = scen["distorted_1440"]
+    reset_launches()
+    pres, est = parity.run_ours(dist, backend="pose_graph", scale_mode="hold", seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_levels = parity.ours_config().n_levels
+    log(f"parity: distorted_1440 default row launches {launches}")
+    if launches["fast_score"] != 2 * n_levels or launches["orb_describe"] != 2 * n_levels:
+        raise AssertionError(f"distorted_1440 default: expected {2 * n_levels} FAST and describe launches "
+                             f"(frames and keyframe stack), got {launches}")
+    if launches["hamming_match"] < 3:
+        raise AssertionError(f"distorted_1440 default: the match launched {launches['hamming_match']} times (< 3)")
+    known = {
+        "distorted_1440": {("pose_graph", "hold", "orb"): parity.evaluate(dist, pres, est)},
+        "clean": {("none", "marker", m): float_modes[m]["clean_parity_row"] for m in FLOAT_MODES},
+    }
+
+    # The reference chain runs in worker processes while this one runs the port's rows.
+    rows, walls = parity.run_all(scen, device="cuda", known=known)
+    log("parity walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    for name, r in rows.items():
+        log(f"parity {name}: " + ", ".join(f"{k} {v['ate_rmse_m']!r}" for k, v in r.items()))
+    holds = parity.holds(rows)
+    for name, hs in holds.items():
+        for label, h in hs.items():
+            log(f"parity hold {name} / {label}: port {h['port']!r} vs JAX {h['jax']!r} +- {h['tol']!r} "
+                f"(margin {h['margin']!r}) {'ok' if h['ok'] else 'MISSED'}; JAX seeds {h['jax_range']} "
+                f"{'inside' if h['in_range'] else 'OUTSIDE'}")
+    outside = parity.outside_range(holds)
+    for msg in outside:
+        log(f"parity: {msg}")
+    failures = parity.gate_failures(rows) + parity.hold_failures(rows)
+    if sum(len(v) for v in holds.values()) != sum(len(parity.JAX_ATE_RMSE[n]) for n in scen):
+        raise AssertionError("parity: a port row has no JAX row to hold it")
+    if failures:
+        raise AssertionError("parity: " + "; ".join(failures))
+
+    # The kernels at drift_loop's shapes.
+    frames = torch.as_tensor(scen["drift_loop"].frames).cuda().float()
+    fast_r, desc_r = frontend_levels(frames, 512, "drift_loop")
+    feats = features.detect_and_describe_batch(frames, k=512)
+    match_r = match_case("drift_loop", feats.desc[:-1], feats.desc[1:], feats.valid[:-1], feats.valid[1:])
+    results["fast_score"]["drift_loop"] = frontend_row(fast_r)
+    results["orb_describe"]["drift_loop"] = dict(frontend_row(desc_r), angles_differ=desc_r["angles_differ"])
+    results["hamming_match"]["drift_loop"] = match_r
+    wall = time.perf_counter() - t_phase
+    log(f"parity: phase P {wall:.1f} s; kernels at drift_loop's shapes: FAST {fast_r['ms']:.4f} ms "
+        f"(bound {fast_r['bound_ms']:.4f}), describe {desc_r['ms']:.4f} ms (bound {desc_r['bound_ms']:.4f}), "
+        f"match {match_r['ms']:.4f} ms (bound {match_r['bound_ms']:.4f})")
+    return dict(rows=rows, holds=holds, outside_jax_range=outside, launches=launches, render_s=render_s,
+                walls_s=walls, wall_s=wall,
+                opencv=cv2.__version__, kernels_drift_loop=dict(
+                    fast_score=frontend_row(fast_r), orb_describe=frontend_row(desc_r), hamming_match=match_r))
 
 
 def marker_detections(seq, i):
@@ -1693,6 +1794,7 @@ def phase_online(seq, none_traj, kernels) -> dict:
     ms under torch.profiler, each push's idle share, the graph's memory;
     the three kernels at the push's shapes against their twins; then one
     SIFT engine's pushes against its eager step."""
+    from droplet_visual_odometry_tpu_torch import parity
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
     from droplet_visual_odometry_tpu_torch.stream import step_seed
@@ -1791,7 +1893,7 @@ def phase_online(seq, none_traj, kernels) -> dict:
                                                          prev.valid[None], curr.valid[None])
 
     # One SIFT engine: capture and replay against its eager step.
-    check_online_pushes(seq, float_config("sift"), "OnlineVO sift", 3)
+    check_online_pushes(seq, parity.ours_config("marker", "sift"), "OnlineVO sift", 3)
     return dict(launches_per_push=launches, push_ms=float(np.median(push_ms)), eager_ms=float(np.median(eager_ms)),
                 push_ms_all=push_ms, eager_ms_all=eager_ms, replay_span_ms=float(np.median(span_ms)),
                 replay_span_ms_all=span_ms, profile_eager=prof_eager, idle_share=idle,
@@ -2246,6 +2348,8 @@ def main() -> int:
     log(json.dumps({"ingest": ingest}))
     float_modes = phase_float(seq)
     log(json.dumps({"float_frontends": float_modes}))
+    par = phase_parity(float_modes, kernels)
+    log(json.dumps({"parity": par}))
     online = phase_online(seq, none_traj, kernels)
     log(json.dumps({"online": online}))
     mesh = phase_mesh(loop_seq, pg, ba, kernels)
@@ -2261,6 +2365,7 @@ def main() -> int:
     # "online" is per push: the launches captured in the push's graph, which every replay runs.
     by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"],
                "cli": ingest["launches"], "online": online["launches_per_push"], "mesh": mesh["launches"],
+               "parity": par["launches"],
                **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
     rows = [
         dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],

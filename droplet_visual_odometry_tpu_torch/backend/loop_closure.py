@@ -16,15 +16,17 @@ port of droplet_visual_odometry_tpu/backend/loop_closure.py.
      independent restarts (P = R * n_slot pairs in one call), then per
      candidate the consensus-medoid restart and the restart dispersion.
 
-Random draws: verification seeds a torch.Generator on the features' device
-with `seed` (0 unless the caller says otherwise, as in the reference), or
-takes `draws(n)` -> (u_hyp (n, H*8), u_lo (n, 2, L*14)) to replay another
-generator's uniforms (tests replay the reference's threefry keys).
+Random draws: verification takes the reference's own uniforms, split from
+PRNGKey(seed) with `seed` 0 unless the caller says otherwise
+(loop_closure.py:306; utils/threefry.py makes them bit for bit on the
+features' device), or `draws(n)` -> (u_hyp (n, H*8), u_lo (n, 2, L*14)) to
+replay another generator's uniforms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -33,6 +35,7 @@ import torch
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult, two_frame_vo
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features, unpack_bits_pm1
+from droplet_visual_odometry_tpu_torch.utils import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,18 +143,37 @@ def _verify_candidates(
     vo_cfg: VOConfig,
     ca: np.ndarray,
     cb: np.ndarray,
-    generator: torch.Generator | None = None,
-    u_hyp: torch.Tensor | None = None,
-    u_lo: torch.Tensor | None = None,
+    u_hyp: torch.Tensor,
+    u_lo: torch.Tensor,
 ) -> VOStepResult:
-    """two_frame_vo over the candidate pairs (ca[p], cb[p]), batched in one call."""
+    """two_frame_vo over the candidate pairs (ca[p], cb[p]), batched in one
+    call, on the RANSAC uniforms u_hyp (P, H*8) and u_lo (P, 2, L*14)."""
     a = torch.as_tensor(ca, dtype=torch.int64, device=corners.device)
     b = torch.as_tensor(cb, dtype=torch.int64, device=corners.device)
     return two_frame_vo(
         Features(*(t[a] for t in feats)), Features(*(t[b] for t in feats)),
         corners[a], corners[b], mvalid[a] & mvalid[b], K, real_marker_length, vo_cfg,
-        generator, u_hyp, u_lo,
+        None, u_hyp, u_lo,
     )
+
+
+@functools.lru_cache(maxsize=16)
+def reference_draws(n: int, ransac_cfg, seed: int = 0, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's verification uniforms for n (restart, slot) pairs:
+    split(PRNGKey(seed), n), one uniform draw per key for the hypotheses and
+    fold_in(key, 1) / (key, 2) for the two LO rounds (loop_closure.py:306,
+    ransac.py:88, 203-206). Returns (u_hyp (n, H*8), u_lo (n, 2, L*14)).
+    They are a constant of (n, ransac_cfg, seed, device), so they are made
+    once (some thousand element-wise launches) and kept; callers must not
+    write into them."""
+    keys = threefry.split(threefry.prng_key(seed, device), n)
+    u_hyp = threefry.uniform(keys, ransac_cfg.n_hypotheses * ransac_cfg.sample_size)
+    u_lo = torch.stack(
+        [threefry.uniform(threefry.fold_in(keys, r), ransac_cfg.lo_hypotheses * ransac_cfg.lo_sample_size)
+         for r in (1, 2)],
+        dim=1,
+    )
+    return u_hyp, u_lo
 
 
 def verify_slots(n_candidates: int, cfg: LoopClosureConfig) -> int:
@@ -302,13 +324,9 @@ def find_loop_closures(
     R = max(1, cfg.verify_restarts)
     ca_p, cb_p = _restart_layout(ca, cb, n_slot, R)
     if draws is None:
-        generator, u_hyp, u_lo = torch.Generator(device=dev).manual_seed(seed), None, None
-    else:
-        generator = None
-        u_hyp, u_lo = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in draws(R * n_slot))
-    res = _verify_candidates(
-        feats, corners, mvalid, Kt, float(real_marker_length), vo_cfg, ca_p, cb_p, generator, u_hyp, u_lo
-    )
+        draws = lambda n: reference_draws(n, vo_cfg.ransac, seed, dev)
+    u_hyp, u_lo = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in draws(R * n_slot))
+    res = _verify_candidates(feats, corners, mvalid, Kt, float(real_marker_length), vo_cfg, ca_p, cb_p, u_hyp, u_lo)
     res = VOStepResult(*(t.cpu().numpy().reshape((R, n_slot) + tuple(t.shape[1:])) for t in res))
     best_r, rot_disp, dir_disp = _pick_restarts(res, R, n_slot)
     res = VOStepResult(*(a[best_r, np.arange(n_slot)][:n_c] for a in res))

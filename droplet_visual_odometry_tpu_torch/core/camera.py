@@ -174,3 +174,21 @@ def remap_bilinear(img: torch.Tensor, src_map: torch.Tensor) -> torch.Tensor:
     top = take(v0, u0) * (1 - du) + take(v0, u1) * du
     bot = take(v1, u0) * (1 - du) + take(v1, u1) * du
     return top * (1 - dv) + bot * dv
+
+
+def undistort_image(img: torch.Tensor, cam: Camera, new_K: np.ndarray, src_map: torch.Tensor | None = None) -> torch.Tensor:
+    """Undistort (..., H, W) grayscale frames on their device (cv.undistort
+    equivalent, reference: visual_odometry_v3.py:110-113)."""
+    if src_map is None:
+        src_map = undistort_rectify_map(cam, new_K, device=img.device)
+    return remap_bilinear(img, src_map)
+
+
+def projection_matrix(K: torch.Tensor, R: torch.Tensor | None = None, t: torch.Tensor | None = None) -> torch.Tensor:
+    """P = K [R | t] (reference: visual_odometry_v3.py:165-167, 309), with
+    leading batch dimensions on R and t."""
+    if R is None:
+        R = torch.eye(3, dtype=K.dtype, device=K.device)
+    if t is None:
+        t = torch.zeros(R.shape[:-2] + (3,), dtype=K.dtype, device=K.device)
+    return K @ torch.cat([R, t[..., :, None]], dim=-1)

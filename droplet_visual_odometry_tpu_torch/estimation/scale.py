@@ -177,3 +177,23 @@ def scale_factor_with_valid(
         raise ValueError(f"unknown scale estimator: {estimator}")
     good = marker_valid & fit_ok & torch.isfinite(s) & (s > 0) & (s < max_scale)
     return torch.where(good, s, torch.ones_like(s)), good
+
+
+def scale_factor(
+    K: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    prev_corners_px: torch.Tensor,
+    curr_corners_px: torch.Tensor,
+    real_marker_length: float,
+    marker_valid: torch.Tensor,
+    side: str = "mean",
+    max_scale: float = 1e3,
+) -> torch.Tensor:
+    """scaling_factor = real_marker_length / measured length (v3:281, 322)
+    by the default estimator, or 1.0 where the marker is absent or the fit
+    degenerates (the reference itself would crash there)."""
+    s, _ = scale_factor_with_valid(
+        K, R, t, prev_corners_px, curr_corners_px, real_marker_length, marker_valid, side, max_scale
+    )
+    return s

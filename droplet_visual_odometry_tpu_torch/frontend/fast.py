@@ -76,6 +76,42 @@ def select_topk(score_map: torch.Tensor, k: int) -> Keypoints:
     return Keypoints(xy=xy, score=vals, valid=vals > 0.0)
 
 
+def select_topk_tiled(score_map: torch.Tensor, k: int, tile: int = 8, per_tile: int = 3) -> Keypoints:
+    """Tile-bucketed top-k of (..., H, W) NMS'd score maps: the strongest
+    `per_tile` corners of every tile x tile block (the map zero-padded to
+    whole tiles), then a global top-k over those candidates.
+
+    Ties resolve as the reference's jnp.argmax and jax.lax.top_k do: the
+    first maximum in a tile, then the lower candidate index (a stable
+    descending sort).
+    """
+    lead = score_map.shape[:-2]
+    h, w = score_map.shape[-2], score_map.shape[-1]
+    ph, pw = (-h) % tile, (-w) % tile
+    th, tw = (h + ph) // tile, (w + pw) // tile
+    n_tiles = th * tw
+    s = F.pad(score_map, (0, pw, 0, ph)).reshape(lead + (th, tile, tw, tile))
+    s = s.transpose(-3, -2).reshape(lead + (n_tiles, tile * tile))
+    cols = torch.arange(tile * tile, device=s.device)
+    cand_v, cand_i = [], []
+    for _ in range(per_tile):
+        i = torch.argmax(s, dim=-1)  # (..., n_tiles)
+        cand_v.append(torch.gather(s, -1, i[..., None])[..., 0])
+        cand_i.append(i)
+        s = torch.where(cols == i[..., None], torch.full_like(s, -torch.inf), s)
+    vals = torch.stack(cand_v, dim=-1).reshape(lead + (n_tiles * per_tile,))
+    locs = torch.stack(cand_i, dim=-1).reshape(lead + (n_tiles * per_tile,))
+    t_idx = torch.arange(n_tiles, device=s.device).repeat_interleave(per_tile)
+    ty = (t_idx // tw) * tile + locs // tile
+    tx = (t_idx % tw) * tile + locs % tile
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices[..., :k]
+    top_v = torch.gather(vals, -1, order)
+    xy = torch.stack(
+        [torch.gather(tx, -1, order).to(torch.float32), torch.gather(ty, -1, order).to(torch.float32)], dim=-1
+    )
+    return Keypoints(xy=xy, score=top_v, valid=top_v > 0.0)
+
+
 def select_topk_rows(score_map: torch.Tensor, k: int, per_row: int | None = None) -> Keypoints:
     """Row-bucketed top-k of (..., H, W) NMS'd score maps: the strongest
     `per_row` corners of every row, then a global top-k over H * per_row
@@ -112,3 +148,15 @@ def select_topk_rows(score_map: torch.Tensor, k: int, per_row: int | None = None
         dim=-1,
     )
     return Keypoints(xy=xy, score=top_v, valid=top_v > 0.0)
+
+
+def detect(img: torch.Tensor, k: int = 512, threshold: float = 20.0, arc_length: int = 9) -> Keypoints:
+    """FAST score, 3x3 NMS and the row-bucketed top-k of (..., H, W) frames.
+
+    The score runs through ops/cuda_fast.fast_score_cuda: the kernel on a
+    CUDA tensor, its plain twin on a CPU tensor.
+    """
+    h, w = img.shape[-2], img.shape[-1]
+    frames = img.to(torch.float32).reshape(-1, h, w).contiguous()
+    score = fast_score_cuda(frames, threshold, arc_length).reshape(img.shape)
+    return select_topk_rows(nms3x3(score), k)

@@ -112,3 +112,12 @@ def _resize_weights_bf16(n_in: int, n_out: int, device: torch.device) -> torch.T
 def downsample2(img: torch.Tensor) -> torch.Tensor:
     """f32 sigma=1 radius-2 blur, then 2x decimation of (..., H, W)."""
     return gaussian_blur(img, sigma=1.0, radius=2)[..., ::2, ::2]
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int) -> list[torch.Tensor]:
+    """Power-of-two Gaussian pyramid of (..., H, W): [level 0 (full
+    resolution), level 1 (H/2), ...]."""
+    out = [img]
+    for _ in range(n_levels - 1):
+        out.append(downsample2(out[-1]))
+    return out

@@ -67,6 +67,13 @@ def describe_batch(imgs_blur: torch.Tensor, xy: torch.Tensor) -> tuple[torch.Ten
     return desc.reshape(n, k, N_WORDS), ang.reshape(n, k)
 
 
+def describe(img_blur: torch.Tensor, kps) -> tuple[torch.Tensor, torch.Tensor]:
+    """One (H, W) blurred frame + its Keypoints (K) -> ((K, 8) int32
+    descriptors, (K,) angles): describe_batch on a batch of one."""
+    desc, ang = describe_batch(img_blur[None], kps.xy[None])
+    return desc[0], ang[0]
+
+
 def extract_patches(imgs: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """(N, H, W) images + (N, K, 2) keypoints -> (N, K, 37, 37) float32 patches
     centred on the integer-rounded keypoints, clamped into the image (the

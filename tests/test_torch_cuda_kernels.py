@@ -275,6 +275,33 @@ def test_feature_layouts_on_cuda(cuda_device):
     assert f.desc.dtype == torch.int32 and f.valid.dtype == torch.bool and f.xy.device.type == "cuda"
 
 
+@pytest.mark.parametrize("batch", [False, True])
+def test_detect_and_describe_public_functions_on_cuda(cuda_device, batch):
+    """fast.detect and orb.describe launch their kernels on a CUDA tensor
+    (one launch each) and equal the plain twins on the same card: keypoints,
+    scores and validity bit for bit, descriptor words and angles equal."""
+    from droplet_visual_odometry_tpu_torch.frontend import fast, filters
+
+    imgs = _images(2, 480, 640, seed=13).to(cuda_device)
+    img = imgs if batch else imgs[0]
+    before = (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES)
+    kps = fast.detect(img, k=512)
+    torch.cuda.synchronize()
+    assert cuda_fast.LAUNCHES == before[0] + 1
+    score = cuda_fast.fast_score_plain(img, 20.0, 9)
+    ref = fast.select_topk_rows(fast.nms3x3(score), 512)
+    for got, want in zip(kps, ref):
+        assert torch.equal(got, want)
+    blur = filters.gaussian_blur(imgs[0], 2.0, 4, compute_dtype=torch.bfloat16).contiguous()
+    one = fast.Keypoints(*(f[0] for f in kps)) if batch else kps
+    words, ang = orb.describe(blur, one)
+    torch.cuda.synchronize()
+    assert cuda_describe.LAUNCHES == before[1] + 1
+    assert words.shape == (512, orb.N_WORDS) and words.device.type == "cuda"
+    ref_words, ref_ang = cuda_describe.describe_plain(blur[None], orb.patch_origins(one.xy[None], 480, 640))
+    assert torch.equal(words, ref_words) and torch.equal(ang, ref_ang)
+
+
 @pytest.mark.parametrize("p", [64, 128])
 def test_match_at_loop_closure_shapes(cuda_device, p):
     """The match at loop closure's shapes, K = 1024: P = 64 is the retrieval

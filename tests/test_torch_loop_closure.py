@@ -106,8 +106,14 @@ def test_find_loop_closures_replayed_draws_agree(kf_data):
     with jax.disable_jit():
         ref = jlc.find_loop_closures(d["jf"], *args, jnp.asarray(d["K"]), d["L"], jvo, jlc.LoopClosureConfig(**LC_KW),
                                      extra_pairs=extra)
-    out = tlc.find_loop_closures(d["tf"], *args, d["K"], d["L"], convert.vo_config_from_dict(dataclasses.asdict(jvo)),
-                                 tlc.LoopClosureConfig(**LC_KW), extra_pairs=extra, draws=jax_verify_draws)
+    tvo = convert.vo_config_from_dict(dataclasses.asdict(jvo))
+    out = tlc.find_loop_closures(d["tf"], *args, d["K"], d["L"], tvo, tlc.LoopClosureConfig(**LC_KW),
+                                 extra_pairs=extra, draws=jax_verify_draws)
+    # Without draws the port takes the reference's own (PRNGKey(0), made by utils/threefry.py): the same run.
+    default = tlc.find_loop_closures(d["tf"], *args, d["K"], d["L"], tvo, tlc.LoopClosureConfig(**LC_KW),
+                                     extra_pairs=extra)
+    for a, b in zip(default, out):
+        np.testing.assert_array_equal(a, b)
     for name in ("i", "j", "n_inliers", "rot_disp_deg", "dir_disp_deg"):
         print(f"{name}: port {getattr(out, name).tolist()} reference {getattr(ref, name).tolist()}")
     assert len(ref.i) >= 2
@@ -118,3 +124,31 @@ def test_find_loop_closures_replayed_draws_agree(kf_data):
     np.testing.assert_allclose(out.rel, ref.rel, atol=2e-3)
     np.testing.assert_allclose(out.rot_disp_deg, ref.rot_disp_deg, atol=0.5)
     np.testing.assert_allclose(out.dir_disp_deg, ref.dir_disp_deg, atol=2.5)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 3])
+def test_threefry_draws_equal_jax_random(seed):
+    """utils/threefry.py against jax.random (threefry2x32, partitionable):
+    PRNGKey, split, fold_in and float32 uniform bit for bit; the default
+    verification draws equal the reference's for the run's seed."""
+    from droplet_visual_odometry_tpu_torch.utils import threefry
+
+    key, tkey = jax.random.PRNGKey(seed), threefry.prng_key(seed)
+    np.testing.assert_array_equal(tkey.numpy(), np.asarray(key).astype(np.int64))
+    keys, tkeys = jax.random.split(key, 21), threefry.split(tkey, 21)
+    np.testing.assert_array_equal(tkeys.numpy(), np.asarray(keys).astype(np.int64))
+    for data in (1, 2, 4099):
+        np.testing.assert_array_equal(threefry.fold_in(tkeys[4], data).numpy(),
+                                      np.asarray(jax.random.fold_in(keys[4], data)).astype(np.int64))
+    want = np.stack([np.asarray(jax.random.uniform(k, (777,))) for k in keys[:6]])
+    got = threefry.uniform(tkeys[:6], 777).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if seed == 0:
+        n = 10
+        cfg = dataclasses.replace(tlc.VOConfig().ransac, n_hypotheses=LC_KW["verify_hypotheses"],
+                                  lo_hypotheses=LC_KW["verify_lo_hypotheses"])
+        u_hyp, u_lo = tlc.reference_draws(n, cfg)
+        ref_hyp, ref_lo = jax_verify_draws(n)
+        np.testing.assert_array_equal(u_hyp.numpy(), ref_hyp.numpy())
+        np.testing.assert_array_equal(u_lo.numpy(), ref_lo.numpy())

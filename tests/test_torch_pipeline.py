@@ -300,10 +300,12 @@ def test_load_calibration_equal(tmp_path, controlled):
 
 
 def test_port_imports_without_jax():
-    """With jax blocked, the whole port imports and scores a CPU tensor."""
+    """With jax and the repo-root parity.py blocked, the whole port (its
+    parity harness included) imports and scores a CPU tensor."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['parity'] = None\n"
         "import droplet_visual_odometry_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -311,6 +313,8 @@ def test_port_imports_without_jax():
         "from droplet_visual_odometry_tpu_torch.frontend import fast\n"
         "s = fast.fast_score_cuda(torch.full((1, 32, 32), 10.0), 20.0, 9)\n"
         "assert s.shape == (1, 32, 32) and not any(k.startswith('jax') and sys.modules[k] for k in sys.modules)\n"
+        "assert 'droplet_visual_odometry_tpu_torch.parity' in sys.modules\n"
+        "assert not any(k.split('.')[0] == 'droplet_visual_odometry_tpu' for k in sys.modules)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
