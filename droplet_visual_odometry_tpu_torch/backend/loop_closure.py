@@ -152,8 +152,7 @@ def _verify_candidates(
     b = torch.as_tensor(cb, dtype=torch.int64, device=corners.device)
     return two_frame_vo(
         Features(*(t[a] for t in feats)), Features(*(t[b] for t in feats)),
-        corners[a], corners[b], mvalid[a] & mvalid[b], K, real_marker_length, vo_cfg,
-        None, u_hyp, u_lo,
+        corners[a], corners[b], mvalid[a] & mvalid[b], K, real_marker_length, vo_cfg, u_hyp, u_lo,
     )
 
 
@@ -164,16 +163,10 @@ def reference_draws(n: int, ransac_cfg, seed: int = 0, device="cpu") -> tuple[to
     fold_in(key, 1) / (key, 2) for the two LO rounds (loop_closure.py:306,
     ransac.py:88, 203-206). Returns (u_hyp (n, H*8), u_lo (n, 2, L*14)).
     They are a constant of (n, ransac_cfg, seed, device), so they are made
-    once (some thousand element-wise launches) and kept; callers must not
-    write into them."""
+    once (some hundred element-wise launches) and kept; callers must not
+    write into them. Both LO rounds are drawn whatever fused_lo_polish says."""
     keys = threefry.split(threefry.prng_key(seed, device), n)
-    u_hyp = threefry.uniform(keys, ransac_cfg.n_hypotheses * ransac_cfg.sample_size)
-    u_lo = torch.stack(
-        [threefry.uniform(threefry.fold_in(keys, r), ransac_cfg.lo_hypotheses * ransac_cfg.lo_sample_size)
-         for r in (1, 2)],
-        dim=1,
-    )
-    return u_hyp, u_lo
+    return threefry.ransac_uniforms(keys, dataclasses.replace(ransac_cfg, fused_lo_polish=False))
 
 
 def verify_slots(n_candidates: int, cfg: LoopClosureConfig) -> int:

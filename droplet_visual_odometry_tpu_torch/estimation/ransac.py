@@ -6,11 +6,11 @@ one batched Sampson error, runs the LO round and the full-set polish, and
 projects the winner to the essential manifold — the reference's schedule,
 with both `fused_lo_polish` branches.
 
-Random draws: the reference draws threefry uniforms (ransac.py:88 and :188);
-here they come from a torch.Generator, or are injected — `u_hyp` (P, B*8)
-for the hypothesis draw and `u_lo` (P, 128*14) for the LO draw ((P, 2,
-128*14) for the two sequential LO rounds) — so tests can replay the
-reference's draws exactly.
+Random draws: the reference's own, from one key per pair (`keys` (P, 2),
+the per-pair key of the reference's ransac_essential) through
+utils/threefry.ransac_uniforms, or injected — `u_hyp` (P, B*8) for the
+hypothesis draw and `u_lo` (P, 128*14) for the LO draw ((P, 2, 128*14) for
+the two sequential LO rounds) — for draws made elsewhere.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from droplet_visual_odometry_tpu_torch.estimation import epipolar
+from droplet_visual_odometry_tpu_torch.utils import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +80,12 @@ def ransac_essential(
     valid: torch.Tensor,
     K: torch.Tensor,
     cfg: RansacConfig = RansacConfig(),
-    generator: torch.Generator | None = None,
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
+    keys: torch.Tensor | None = None,
 ) -> RansacResult:
-    """Robust E for each of P pairs of (N, 2) matched pixel coords with (N,) masks."""
+    """Robust E for each of P pairs of (N, 2) matched pixel coords with (N,)
+    masks, drawing from `keys` (P, 2) unless u_hyp is given."""
     dev = pts1_px.device
     p, n = valid.shape
     x1 = epipolar.to_normalized(pts1_px, K)
@@ -91,16 +93,12 @@ def ransac_essential(
     f = 0.5 * (K[0, 0] + K[1, 1])
     thr2 = (cfg.threshold_px / f) ** 2
 
-    n_lo_rounds = 1 if cfg.fused_lo_polish else 2
     if u_hyp is None:
-        u_hyp = torch.rand((p, cfg.n_hypotheses * cfg.sample_size), generator=generator, device=dev)
-    if cfg.lo_hypotheses > 0:
-        if u_lo is None:
-            u_lo = torch.rand(
-                (p, n_lo_rounds, cfg.lo_hypotheses * cfg.lo_sample_size), generator=generator, device=dev
-            )
-        elif u_lo.dim() == 2:
-            u_lo = u_lo[:, None]
+        if keys is None:
+            raise ValueError("ransac_essential needs per-pair keys or injected uniforms")
+        u_hyp, u_lo = threefry.ransac_uniforms(keys, cfg)
+    elif u_lo is not None and u_lo.dim() == 2:
+        u_lo = u_lo[:, None]
 
     # One global Hartley frame per pair conditions every minimal solve.
     vw = valid.to(torch.float32)
@@ -184,13 +182,13 @@ def ransac_pose(
     valid: torch.Tensor,
     K: torch.Tensor,
     cfg: RansacConfig = RansacConfig(),
-    generator: torch.Generator | None = None,
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
+    keys: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, RansacResult]:
     """findEssentialMat + recoverPose for P pairs: (R (P, 3, 3), t_unit (P, 3),
     result) with p_curr = R @ p_prev + t."""
-    res = ransac_essential(pts1_px, pts2_px, valid, K, cfg, generator, u_hyp, u_lo)
+    res = ransac_essential(pts1_px, pts2_px, valid, K, cfg, u_hyp, u_lo, keys)
     x1 = epipolar.to_normalized(pts1_px, K)
     x2 = epipolar.to_normalized(pts2_px, K)
     R, t, front = epipolar.recover_pose(res.E, x1, x2, res.inliers.to(torch.float32))

@@ -21,6 +21,7 @@ from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig, ra
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
+from droplet_visual_odometry_tpu_torch.utils import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +65,13 @@ def two_frame_vo(
     K: torch.Tensor,
     real_marker_length: float,
     cfg: VOConfig,
-    generator: torch.Generator | None = None,
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
+    keys: torch.Tensor | None = None,
 ) -> VOStepResult:
     """P frame pairs -> scaled relative poses: match, LO-RANSAC + pose, marker
-    scale. Degenerate pairs yield rel = identity with ok = False."""
+    scale. Degenerate pairs yield rel = identity with ok = False. RANSAC
+    draws from the pairs' keys (P, 2) or the injected u_hyp/u_lo."""
     m = matcher.match(
         feats_prev.desc, feats_curr.desc, feats_prev.valid, feats_curr.valid,
         mode=cfg.match_mode, ratio=cfg.ratio,
@@ -77,7 +79,7 @@ def two_frame_vo(
     p_prev, p_curr, valid = matcher.gather_correspondences(feats_prev.xy, feats_curr.xy, m)
     n_matches = torch.sum(valid, dim=-1).to(torch.int32)
 
-    R, t_unit, res = ransac_pose(p_prev, p_curr, valid, K, cfg.ransac, generator, u_hyp, u_lo)
+    R, t_unit, res = ransac_pose(p_prev, p_curr, valid, K, cfg.ransac, u_hyp, u_lo, keys)
     s, s_ok = scale_mod.scale_factor_with_valid(
         K, R, t_unit, prev_marker_corners, curr_marker_corners, real_marker_length, marker_valid,
         side=cfg.scale_side, estimator=cfg.scale_estimator,
@@ -140,12 +142,15 @@ def run_sequence(
     u_lo: torch.Tensor | None = None,
     init_scale: float | torch.Tensor = 1.0,
     init_scale_seen: bool | torch.Tensor = False,
+    *,
+    key: torch.Tensor | None = None,
 ) -> VOTrajectory:
     """Per-pair VO over a sequence of (N, H, W) undistorted frames, on their device.
 
-    RANSAC draws come from a torch.Generator on the frames' device seeded
-    with `seed`, or from injected uniforms u_hyp (P, B*8) and u_lo
-    (P, 128*14), P = N-1, to replay the reference's per-pair draws.
+    RANSAC draws are the reference's: pair i's key is split(key, N-1)[i]
+    (vo.py:189), with key = PRNGKey(seed) unless `key` (two uint32 words in
+    an int64 tensor, the reference's `key` argument) is given; or they are
+    the injected uniforms u_hyp (P, B*8) and u_lo (P, 128*14), P = N-1.
 
     init_scale/init_scale_seen: the carry of scale_mode='hold' across
     chunked runs (utils/checkpoint.py): the last held scale of the previous
@@ -159,7 +164,10 @@ def run_sequence(
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     corners = torch.nan_to_num(torch.as_tensor(marker_corners, dtype=torch.float32, device=dev))
     present = torch.as_tensor(marker_present, dtype=torch.bool, device=dev)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    keys = None
+    if u_hyp is None:
+        key = threefry.prng_key(seed, dev) if key is None else key.to(dev)
+        keys = threefry.split(key, frames.shape[0] - 1)
 
     feats = detect_and_describe_batch(
         frames,
@@ -175,7 +183,7 @@ def run_sequence(
     feats_curr = Features(*(a[1:] for a in feats))
     res = two_frame_vo(
         feats_prev, feats_curr, corners[:-1], corners[1:], present[:-1] & present[1:],
-        K, real_marker_length, cfg, generator, u_hyp, u_lo,
+        K, real_marker_length, cfg, u_hyp, u_lo, keys,
     )
 
     if cfg.scale_mode == "hold":

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, two_frame_vo
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
+from droplet_visual_odometry_tpu_torch.utils import threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 
@@ -126,18 +127,10 @@ def local_shard(mesh: Mesh, arr, dim: int = 0) -> torch.Tensor:
     return t.narrow(dim, mesh.rank * b, b).to(mesh.device)
 
 
-def ransac_draws(n_pairs: int, cfg: VOConfig, seed: int, device) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(u_hyp, u_lo) for n_pairs pairs from one torch.Generator on `device`
-    seeded with `seed`, drawn in ransac_essential's order (hypotheses, then
-    the LO rounds): the uniforms run_sequence's generator gives its pairs."""
-    rc = cfg.ransac
-    g = torch.Generator(device=device).manual_seed(seed)
-    u_hyp = torch.rand((n_pairs, rc.n_hypotheses * rc.sample_size), generator=g, device=device)
-    if rc.lo_hypotheses <= 0:
-        return u_hyp, None
-    rounds = 1 if rc.fused_lo_polish else 2
-    u_lo = torch.rand((n_pairs, rounds, rc.lo_hypotheses * rc.lo_sample_size), generator=g, device=device)
-    return u_hyp, u_lo
+def ransac_draws(n_pairs: int, cfg: VOConfig, key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(u_hyp, u_lo) of n_pairs pairs on the key's device: pair i draws from
+    split(key, n_pairs)[i] (sharding.py:83), as run_sequence's pairs draw."""
+    return threefry.ransac_uniforms(threefry.split(key, n_pairs), cfg.ransac)
 
 
 def pair_vo_batched(
@@ -153,18 +146,20 @@ def pair_vo_batched(
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
     device="cuda",
+    *,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Two-frame VO over a batch of B independent pairs -> (B, 4, 4)
     relative poses. The 2B frames are described in one batch; the RANSAC
-    uniforms come from ransac_draws(B, cfg, seed) or are injected (u_hyp
-    (B, n_hyp*8), u_lo (B, rounds, 128*14)). Shard the B axis over a mesh
-    with shard_pair_vo."""
+    uniforms come from ransac_draws(B, cfg, key), key = PRNGKey(seed) unless
+    given, or are injected (u_hyp (B, n_hyp*8), u_lo (B, rounds, 128*14)).
+    Shard the B axis over a mesh with shard_pair_vo."""
     dev = rank_device(device)
     f32 = lambda a: torch.as_tensor(a).to(dev, torch.float32)
     fp, fc = f32(frames_prev), f32(frames_curr)
     b = fp.shape[0]
     if u_hyp is None:
-        u_hyp, u_lo = ransac_draws(b, cfg, seed, dev)
+        u_hyp, u_lo = ransac_draws(b, cfg, threefry.prng_key(seed, dev) if key is None else key.to(dev))
     # As in the reference (sharding.py:73-78), the detector takes k, threshold
     # and arc_length only: cfg.frontend, n_levels, scale_factor and
     # dog_threshold are ignored, unlike run_sequence (ROADMAP C.3).
@@ -199,18 +194,22 @@ def shard_pair_vo(
     seed: int = 0,
     u_hyp: torch.Tensor | None = None,
     u_lo: torch.Tensor | None = None,
+    *,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Data-parallel pair VO: rank r runs pairs [r B/D, (r+1) B/D) on its
     device and every rank gets the full (B, 4, 4) back (one all_gather of
-    B*16 floats). The draws are made for all B pairs on every rank and then
-    sliced, so a pair's draws do not depend on D. Per-pair work is
-    independent: no other collective runs."""
+    B*16 floats). The draws are made for all B pairs on every rank from
+    split(key, B), key = PRNGKey(seed) unless given, and then sliced, so a
+    pair's draws do not depend on D. Per-pair work is independent: no other
+    collective runs."""
     _require_member(mesh)
     b = len(frames_prev)
     if b % mesh.size:
         raise ValueError(f"{b} pairs do not divide over {mesh.size} devices")
     if u_hyp is None:
-        u_hyp, u_lo = ransac_draws(b, cfg, seed, mesh.device)
+        key = threefry.prng_key(seed, mesh.device) if key is None else key.to(mesh.device)
+        u_hyp, u_lo = ransac_draws(b, cfg, key)
     shard = lambda a: local_shard(mesh, a)
     rel = pair_vo_batched(
         shard(frames_prev), shard(frames_curr), shard(corners_prev), shard(corners_curr), shard(marker_valid),

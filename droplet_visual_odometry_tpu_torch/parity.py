@@ -520,9 +520,10 @@ def run_all(scen: dict, quick=False, device="cuda", known=None) -> tuple[dict, d
 # run on a CPU. On marker_gap the none and default rows are the mean over
 # render seeds 3/13/23 (their range is that mean's), the others seed 3's.
 # A port row is held within twice its spread (max - min) of the JAX row, and
-# reported when it lies outside the range of the four seeds: the port draws
-# its RANSAC samples from a torch.Generator, not threefry, so it cannot
-# repeat one seed's run.
+# reported when it lies outside the range of the four seeds. The port's rows
+# draw the JAX package's seed-0 samples (utils/threefry.py), but XLA's jit
+# moves the 8-point solves and near-tied MSAC winners (ROADMAP C.2), so a
+# row is not the JAX row to the digit.
 JAX_ATE_RMSE = {
     "clean": {
         "ours none": 0.113883, "ours ba": 0.093239, "ours pose_graph": 0.113883, DEFAULT_LABEL: 0.113883,

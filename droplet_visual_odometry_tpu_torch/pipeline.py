@@ -30,6 +30,7 @@ from droplet_visual_odometry_tpu_torch.data.sequence import VOSequence
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOTrajectory, run_sequence
 from droplet_visual_odometry_tpu_torch.eval import metrics, tum
 from droplet_visual_odometry_tpu_torch.utils.checkpoint import run_sequence_checkpointed
+from droplet_visual_odometry_tpu_torch.utils import threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("none", "pose_graph", "ba")
@@ -128,10 +129,11 @@ def run_experiment(
     first = int(np.argmax(seq.marker_present)) if seq.marker_present.any() else 0
     init_pose = np.asarray(seq.marker_poses[first], np.float32)
 
+    key = threefry.prng_key(seed, dev)  # both branches draw from PRNGKey(seed), as the reference's
     if stream:
         traj = run_sequence_checkpointed(
             seq.frames, corners, np.asarray(seq.marker_present), init_pose, K, seq.real_marker_length, cfg,
-            path=checkpoint_path, chunk=checkpoint_chunk, seed=seed, preprocess=preprocess, device=dev,
+            path=checkpoint_path, chunk=checkpoint_chunk, preprocess=preprocess, device=dev, key=key,
         )
         # The backends take the frames or a fetcher: here keyframes cross to
         # the device as a host gather.
@@ -140,7 +142,7 @@ def run_experiment(
         frames = preprocess(seq.frames)
         traj = run_sequence(
             frames, corners, np.asarray(seq.marker_present), init_pose, K,
-            seq.real_marker_length, cfg, seed=seed,
+            seq.real_marker_length, cfg, key=key,
         )
         traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
 
@@ -200,15 +202,14 @@ def dump_match_images(
     pairs (RANSAC inliers green, outliers red), a keypoint overlay of the
     first pair's first frame, and the marker corners where both frames have
     the marker. Each pair runs on `device` as a two-frame batch: the
-    frontend, the match at P = 1, LO-RANSAC with a generator seeded from
-    (seed, pair). Returns the written paths."""
+    frontend, the match at P = 1, LO-RANSAC drawing from fold_in(PRNGKey(seed),
+    pair) (the reference's pipeline.py:317). Returns the written paths."""
     import os
 
     from droplet_visual_odometry_tpu_torch.estimation.ransac import ransac_pose
     from droplet_visual_odometry_tpu_torch.eval import plots
     from droplet_visual_odometry_tpu_torch.frontend import matcher
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
-    from droplet_visual_odometry_tpu_torch.utils.checkpoint import chunk_seed
 
     os.makedirs(out_dir, exist_ok=True)
     n = len(seq)
@@ -218,6 +219,7 @@ def dump_match_images(
     dev = resolve_device(device)
     preprocess = make_preprocessor(seq, dev)
     K = torch.as_tensor(effective_K(seq), dtype=torch.float32, device=dev)
+    key = threefry.prng_key(seed, dev)
 
     paths: list[str] = []
     for i in pair_starts:
@@ -234,8 +236,7 @@ def dump_match_images(
         m = matcher.match(feats.desc[:1], feats.desc[1:], feats.valid[:1], feats.valid[1:],
                           mode=cfg.match_mode, ratio=cfg.ratio)
         p_prev, p_curr, valid = matcher.gather_correspondences(feats.xy[:1], feats.xy[1:], m)
-        generator = torch.Generator(device=dev).manual_seed(chunk_seed(seed, i))
-        _, _, res = ransac_pose(p_prev, p_curr, valid, K, cfg.ransac, generator)
+        _, _, res = ransac_pose(p_prev, p_curr, valid, K, cfg.ransac, keys=threefry.fold_in(key, i)[None])
         fa, fb = frames[0].cpu().numpy(), frames[1].cpu().numpy()
         xy = feats.xy.cpu().numpy()
         path = os.path.join(out_dir, f"match_{i:05d}.png")

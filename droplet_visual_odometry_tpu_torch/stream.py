@@ -13,16 +13,21 @@ device_get after it. Here, on the card, each engine captures that step as
 ONE CUDA graph at its first armed push and replays it after that; a push
 then is: the raw frame, both frames' marker corners and the marker flag
 copied to static device buffers through one page-locked staging buffer,
-the step's RANSAC uniforms written into static buffers, one replay, and one
-fetch of (rel, n_inliers, ok, n_matches). On the CPU the same step runs eagerly:
-graphs exist only on CUDA devices, so the device decides, and a capture that
-fails raises.
+one replay, and one fetch of (rel, n_inliers, ok, n_matches). On the CPU the
+same step runs eagerly: graphs exist only on CUDA devices, so the device
+decides, and a capture that fails raises.
 
-RANSAC draws: push `step` draws from a generator seeded with
-`step_seed(seed, step)`, outside the graph, or from an injected
-`draws(step) -> (u_hyp (1, B*8), u_lo (1, L*14) or (1, 2, L*14))`, so tests
-can replay the reference's fold_in(key, step) keys. The kernels' launch
-counters tick while a step runs eagerly or is captured, not on a replay:
+RANSAC draws: the reference's. Push `step` draws from fold_in(PRNGKey(seed),
+step) (stream.py:112), through `ring_draws`: one batched threefry call makes
+the draws of DRAW_BLOCK consecutive pushes on the engine's device, and each
+push copies its row into the graph's static buffers (device to device)
+before the replay. Made inside the graph instead, the draws cost every
+replay ~520 more nodes. On the card the two forms' median pushes differ by
+under 1 ms, in either direction by run; the ring's mean push, refills
+included, was the lower, at the price of one push in DRAW_BLOCK that makes
+the next block (PERF.md, section 6). An injected `draws(step) -> (u_hyp (1, B*8), u_lo (1,
+L*14) or (1, 2, L*14))` replaces them. The kernels' launch counters tick
+while a step runs eagerly or is captured, not on a replay:
 `captured_launches` holds the capture's, the launches of every replay.
 """
 
@@ -38,9 +43,12 @@ from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, two_frame_
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 from droplet_visual_odometry_tpu_torch.groundtruth import GroundTruthConfig, MarkerDetections, marker_pose_to_cTm
+from droplet_visual_odometry_tpu_torch.utils import threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 Draws = Callable[[int], tuple[torch.Tensor, torch.Tensor | None]]
+
+DRAW_BLOCK = 256  # pushes whose draws one batched threefry call makes
 
 # Byte layout of the staging buffer: previous and current marker corners
 # (4 x 2 float32 each), the marker flag, then the raw frame 16-byte aligned.
@@ -54,10 +62,23 @@ def _launch_counts() -> dict[str, int]:
             "hamming_match": cuda_match.LAUNCHES}
 
 
-def step_seed(seed: int, step: int) -> int:
-    """Seed of push `step`'s RANSAC generator: a function of (seed, step)
-    alone (the OnlineVO counterpart of utils/checkpoint.chunk_seed)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def ring_draws(key: torch.Tensor, ransac_cfg) -> Draws:
+    """draws(step) of the reference's pushes: the uniforms of fold_in(key,
+    step), made for DRAW_BLOCK consecutive steps at once (one
+    ransac_uniforms call over their keys, on the key's device) and handed
+    out row by row. A step outside the current block starts a new one at
+    that step."""
+    ring = {}
+
+    def draws(step: int):
+        if not ring or not ring["start"] <= step < ring["start"] + DRAW_BLOCK:
+            steps = torch.arange(step, step + DRAW_BLOCK, dtype=torch.int64, device=key.device)
+            ring.update(start=step, u=threefry.ransac_uniforms(threefry.fold_in(key, steps), ransac_cfg))
+        i = step - ring["start"]
+        u_hyp, u_lo = ring["u"]
+        return u_hyp[i:i + 1], None if u_lo is None else u_lo[i:i + 1]
+
+    return draws
 
 
 @dataclasses.dataclass
@@ -78,7 +99,10 @@ class OnlineVO:
     """Marker-gated streaming VO engine on one device.
 
     Frames must arrive in timestamp order, all of one shape and dtype (the
-    first pins them). `device` defaults to the card; "cuda" without one raises.
+    first pins them; a frame that differs raises), as host arrays or as
+    tensors already on the engine's device (copied device to device into
+    the step's input). `device` defaults to the card; "cuda" without one
+    raises.
     """
 
     def __init__(
@@ -100,13 +124,14 @@ class OnlineVO:
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
         self.real_marker_length = float(real_marker_length)
         self.seed = seed
-        self.draws = draws
+        self.draws = draws if draws is not None else ring_draws(threefry.prng_key(seed, self.device), cfg.ransac)
         self._armed = False
         self._pose = np.eye(4, dtype=np.float32)
         self._step = 0
         self._prev_corners = np.zeros((4, 2), np.float32)
         self._prev_valid = False
         self._prev_feats: Features | None = None
+        self._frame_spec: tuple[tuple[int, ...], torch.dtype] | None = None  # pinned by the first frame
         self._graph: torch.cuda.CUDAGraph | None = None
         self._static: dict | None = None
         # Kernel launches in the captured graph, i.e. per replayed push (set at capture).
@@ -163,10 +188,12 @@ class OnlineVO:
                 cb(float(timestamp), int(ids[slot]), cTms[slot])
 
     # -- main entry ---------------------------------------------------------
-    def push(self, timestamp: float, frame: np.ndarray, markers: MarkerDetections | None = None) -> StreamResult:
+    def push(self, timestamp: float, frame: np.ndarray | torch.Tensor,
+             markers: MarkerDetections | None = None) -> StreamResult:
         """Process one frame (and the marker detections of the same stamp):
         the chained pose estimate. Until the first marker the engine stays
         unarmed and frames only prime it."""
+        self._check_frame(frame)
         gt_pose, corners, mvalid = self._marker_info(markers)
         if markers is not None and self.on_marker:
             self._broadcast_markers(timestamp, markers)
@@ -197,24 +224,17 @@ class OnlineVO:
         n_inliers, ok, n_matches]. On the card it is the graph's eager twin."""
         if not self._armed:
             raise RuntimeError("step_eager: the engine is not armed")
+        self._check_frame(frame)
         _, corners, mvalid = self._marker_info(markers)
         return self._run_eager(frame, corners, bool(self._prev_valid) and bool(mvalid), self._step + 1)[1]
 
     # -- the device step ----------------------------------------------------
-    def _uniforms(self, step: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _draws(self, step: int) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(u_hyp (1, B*8), u_lo (1, rounds, L*14) or None) of push `step`."""
-        if self.draws is not None:
-            u_hyp, u_lo = self.draws(step)
-            if u_lo is not None and u_lo.dim() == 2:
-                u_lo = u_lo[:, None]
-            return u_hyp, u_lo
-        rc = self.cfg.ransac
-        g = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, step))
-        u_hyp = torch.rand((1, rc.n_hypotheses * rc.sample_size), generator=g, device=self.device)
-        if rc.lo_hypotheses <= 0:
-            return u_hyp, None
-        rounds = 1 if rc.fused_lo_polish else 2
-        return u_hyp, torch.rand((1, rounds, rc.lo_hypotheses * rc.lo_sample_size), generator=g, device=self.device)
+        u_hyp, u_lo = self.draws(step)
+        if u_lo is not None and u_lo.dim() == 2:
+            u_lo = u_lo[:, None]
+        return u_hyp, u_lo
 
     def _step_body(self, frame, feats_prev: Features, pc, cc, mv, u_hyp, u_lo) -> tuple[Features, torch.Tensor]:
         """The push's device program: f32 cast, detect and describe, two_frame_vo
@@ -234,21 +254,37 @@ class OnlineVO:
         """Push `step`'s device step op by op on the carried features:
         (current features, (19,) host float32 output)."""
         dev = self.device
-        u_hyp, u_lo = self._uniforms(step)
+        u_hyp, u_lo = (None if u is None else u.to(dev) for u in self._draws(step))
         prev = self._static["prev"] if self._static is not None else self._prev_feats
         feats_curr, out = self._step_body(
-            torch.as_tensor(np.asarray(frame), device=dev), prev,
+            self._on_device(frame), prev,
             torch.as_tensor(self._prev_corners, device=dev),
             torch.as_tensor(np.asarray(corners, np.float32), device=dev),
             torch.tensor(bool(marker_valid), device=dev),
-            u_hyp.to(dev), None if u_lo is None else u_lo.to(dev),
+            u_hyp, u_lo,
         )
         return feats_curr, out.cpu()
 
+    def _check_frame(self, frame) -> None:
+        """Pin the first frame's shape and dtype; raise on a frame that differs."""
+        if isinstance(frame, torch.Tensor):
+            spec = (tuple(frame.shape), frame.dtype)
+        else:
+            frame = np.asarray(frame)
+            spec = (frame.shape, torch.from_numpy(np.empty(0, frame.dtype)).dtype)
+        if self._frame_spec is None:
+            self._frame_spec = spec
+        elif spec != self._frame_spec:
+            raise ValueError(f"frame of shape {spec[0]} and dtype {spec[1]}: the engine's frames are "
+                             f"{self._frame_spec[0]}, {self._frame_spec[1]}")
+
+    def _on_device(self, frame) -> torch.Tensor:
+        if isinstance(frame, torch.Tensor):
+            return frame.to(self.device)
+        return torch.as_tensor(np.asarray(frame), device=self.device)
+
     def _prime(self, frame, corners, mvalid) -> None:
-        self._prev_feats = detect_and_describe(
-            torch.as_tensor(np.asarray(frame), device=self.device).to(torch.float32), **self._detect_kw
-        )
+        self._prev_feats = detect_and_describe(self._on_device(frame).to(torch.float32), **self._detect_kw)
         self._prev_corners = np.asarray(corners, np.float32)
         self._prev_valid = mvalid
 
@@ -259,9 +295,13 @@ class OnlineVO:
         host[_PC:_CC].view(np.float32)[:] = self._prev_corners.reshape(-1)
         host[_CC:_MV].view(np.float32)[:] = np.asarray(corners, np.float32).reshape(-1)
         host[_MV] = bool(marker_valid)
-        host[_FRAME:].view(st["frame_dtype"])[:] = np.asarray(frame).reshape(-1)
-        st["dev"].copy_(st["host"], non_blocking=True)
-        u_hyp, u_lo = self._uniforms(self._step)
+        if isinstance(frame, torch.Tensor):  # already on the card: only the marker bytes cross
+            st["dev"][:_FRAME].copy_(st["host"][:_FRAME], non_blocking=True)
+            st["frame"].copy_(frame.reshape(st["frame"].shape))
+        else:
+            host[_FRAME:].view(st["frame_dtype"])[:] = np.asarray(frame).reshape(-1)
+            st["dev"].copy_(st["host"], non_blocking=True)
+        u_hyp, u_lo = self._draws(self._step)
         st["u_hyp"].copy_(u_hyp, non_blocking=True)
         if u_lo is not None:
             st["u_lo"].copy_(u_lo, non_blocking=True)
@@ -270,31 +310,31 @@ class OnlineVO:
         """The push on the card: stage, replay the captured graph (capture it
         at the first armed push), fetch."""
         if self._graph is None:
-            self._capture(np.asarray(frame))
+            self._capture(frame)
         self._stage(frame, corners, marker_valid)
         self._graph.replay()
         return self._static["out"].cpu()
 
-    def _capture(self, frame: np.ndarray) -> None:
+    def _capture(self, frame: np.ndarray | torch.Tensor) -> None:
         """Build the static buffers from the carried features and capture the
         step as one CUDA graph; a warm-up run on a side stream first builds
         every per-device constant and kernel library outside the capture."""
         dev = self.device
-        fb = frame.nbytes
+        shape, tdtype = self._frame_spec
+        fb = int(np.prod(shape)) * tdtype.itemsize
         host = torch.empty(_FRAME + fb, dtype=torch.uint8, pin_memory=True)
         dev_buf = torch.empty(_FRAME + fb, dtype=torch.uint8, device=dev)
-        tdtype = torch.from_numpy(np.empty(0, frame.dtype)).dtype
-        u_hyp, u_lo = self._uniforms(self._step)
         st = dict(
-            host=host, dev=dev_buf, frame_dtype=frame.dtype,
-            frame=dev_buf[_FRAME:].view(tdtype).view(frame.shape),
+            host=host, dev=dev_buf, frame_dtype=torch.empty(0, dtype=tdtype).numpy().dtype,
+            frame=dev_buf[_FRAME:].view(tdtype).view(shape),
             pc=dev_buf[_PC:_CC].view(torch.float32).view(4, 2),
             cc=dev_buf[_CC:_MV].view(torch.float32).view(4, 2),
             mv=dev_buf[_MV:_MV + 1].view(torch.bool),
-            u_hyp=torch.empty(u_hyp.shape, dtype=torch.float32, device=dev),
-            u_lo=None if u_lo is None else torch.empty(u_lo.shape, dtype=torch.float32, device=dev),
             prev=Features(*(a.clone() for a in self._prev_feats)),
         )
+        u_hyp, u_lo = self._draws(self._step)
+        st["u_hyp"] = torch.empty(u_hyp.shape, dtype=torch.float32, device=dev)
+        st["u_lo"] = None if u_lo is None else torch.empty(u_lo.shape, dtype=torch.float32, device=dev)
         self._static = st
         self._stage(frame, np.zeros((4, 2), np.float32), False)
 

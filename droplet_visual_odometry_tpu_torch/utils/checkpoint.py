@@ -14,10 +14,11 @@ device at a time, through one page-locked host buffer reused for every
 chunk, and `preprocess` (the uint8 -> float32 cast and undistortion) runs on
 the device inside the loop. Whole-sequence frames never exist on the device.
 
-Random draws: each chunk's RANSAC generator is seeded from (seed, start)
-alone, where the reference folds `start` into its run key, so a resumed run
-draws what the uninterrupted run drew; `draws(start, n_pairs)` injects a
-chunk's uniforms instead (to replay the reference's threefry keys).
+Random draws: the reference's. The chunk whose first pair ends at frame
+`start` runs under fold_in(key, start) (checkpoint.py:127), a function of
+(key, start) alone, so a resumed run draws what the uninterrupted run drew;
+`draws(start, n_pairs)` injects a chunk's uniforms instead. The state file
+keeps the run key, as the reference's does.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOTrajectory, run_sequence
+from droplet_visual_odometry_tpu_torch.utils import threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 _FIELDS = ("abs_poses", "rel_poses", "n_matches", "n_inliers", "scales", "scale_ok", "ok")
@@ -57,12 +59,6 @@ def load_state(path: str) -> dict[str, np.ndarray] | None:
         return {k: z[k] for k in z.files}
 
 
-def chunk_seed(seed: int, start: int) -> int:
-    """Seed of the RANSAC generator of the chunk whose first pair ends at
-    frame `start`: a function of (seed, start) alone."""
-    return int(np.random.SeedSequence([seed, start]).generate_state(1)[0])
-
-
 def run_sequence_checkpointed(
     frames,  # (N, H, W) host array-like: ndarray / np.memmap / StoreFrames
     marker_corners: np.ndarray,
@@ -79,6 +75,7 @@ def run_sequence_checkpointed(
     progress: Callable[[int, int], None] | None = None,
     draws: Callable[[int, int], tuple[torch.Tensor, torch.Tensor]] | None = None,
     device="cuda",
+    key: torch.Tensor | None = None,
 ) -> VOTrajectory:
     """run_sequence over `frames` in chunks of `chunk` pairs, resumable from
     `path` (None streams without persistence). Returns the trajectory as
@@ -91,8 +88,9 @@ def run_sequence_checkpointed(
     another `n` or `chunk` restarts the run.
 
     preprocess maps a chunk's raw frames, already on `device`, to the float32
-    frames VO consumes (default: a cast). draws(start, n_pairs) -> (u_hyp,
-    u_lo) replaces the chunk's generator with injected uniforms.
+    frames VO consumes (default: a cast). The run key is PRNGKey(seed)
+    unless `key` is given; draws(start, n_pairs) -> (u_hyp, u_lo) replaces
+    a chunk's keyed draws with injected uniforms.
     """
     n = int(frames.shape[0])
     if n < 2:
@@ -100,6 +98,8 @@ def run_sequence_checkpointed(
     dev = resolve_device(device)
     if preprocess is None:
         preprocess = lambda c: c.to(torch.float32)
+    key = threefry.prng_key(seed, dev) if key is None else key.to(dev)
+    key_words = key.cpu().numpy().astype(np.uint32)
 
     state = load_state(path) if path else None
     if state is not None and int(state["n_total"]) == n and int(state["chunk"]) == chunk:
@@ -135,8 +135,8 @@ def run_sequence_checkpointed(
         u_hyp, u_lo = draws(start, chunk) if draws is not None else (None, None)
         traj = run_sequence(
             preprocess(staging.to(dev, non_blocking=True)), mc, mp, abs_last, K, real_marker_length, cfg,
-            seed=chunk_seed(seed, start), u_hyp=u_hyp, u_lo=u_lo,
-            init_scale=scale_last, init_scale_seen=scale_seen,
+            u_hyp=u_hyp, u_lo=u_lo, init_scale=scale_last, init_scale_seen=scale_seen,
+            key=None if u_hyp is not None else threefry.fold_in(key, start),
         )
         traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
         n_pairs = n_real - 1
@@ -160,6 +160,7 @@ def run_sequence_checkpointed(
                 "abs_last": abs_last,
                 "scale_last": np.asarray(scale_last),
                 "scale_seen": np.asarray(scale_seen),
+                "key": key_words,
                 **{f: np.concatenate(acc[f], axis=0) for f in _FIELDS},
             })
 

@@ -229,12 +229,12 @@ def test_refine_trajectory_agrees(loop_seqs, jax_ba_run):
 
 
 def test_run_experiment_ba_agrees(loop_seqs, jax_ba_run, tmp_path):
-    """run_experiment(backend="ba", device="cpu") with the port's own draws:
-    the six TUM files, windows run and accepted, and the ATE held to the
-    reference's seed-0 figure within twice the reference's own seed-to-seed
-    spread, 0.16 m (ATE RMSE over RANSAC seeds 0-3 on this sequence:
-    reference 0.1465 / 0.0806 / 0.0884 / 0.0664 m, port 0.1352 / 0.1151 /
-    0.1721 / 0.0833 m)."""
+    """run_experiment(backend="ba", device="cpu") with its default draws,
+    the reference's for seed 0: the six TUM files, windows run and accepted,
+    and the ATE held to the reference's seed-0 figure within 1 cm, the
+    replayed-draw tolerance of ROADMAP C.2 (measured 4.6 mm; the reference's
+    own seed-to-seed spread is 0.080 m: ATE RMSE 0.1465 / 0.0806 / 0.0884 /
+    0.0664 m over RANSAC seeds 0-3)."""
     res = tpipe.run_experiment(loop_seqs[1], convert.vo_config_from_dict(dataclasses.asdict(JVO)), str(tmp_path), 0,
                                backend="ba", device="cpu")
     info, ref_info = res.backend_info, jax_ba_run.backend_info
@@ -242,7 +242,7 @@ def test_run_experiment_ba_agrees(loop_seqs, jax_ba_run, tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(ttum.STREAM_NAMES)
     assert np.isfinite(res.vo_abs).all()
     assert info["windows"] >= 1 and len(_accepted(info)) >= 1 and len(info["rms_px"]) == len(_accepted(info))
-    assert abs(res.ate.rmse - jax_ba_run.ate.rmse) < 0.16
+    assert abs(res.ate.rmse - jax_ba_run.ate.rmse) < 1e-2
 
 
 # --------------------------------------------------------------------------

@@ -403,13 +403,13 @@ def test_pose_graph_trajectory_on_two_ranks(loop_seqs, vo_outputs, jax_pg_run, t
 
 
 def test_run_experiment_pose_graph_agrees(loop_seqs, jax_pg_run, tmp_path):
-    """The slice end to end on the CPU with the port's own draws: the six
-    TUM files, the graph cost falls, the drift of the raw VO chain falls by
-    more than a quarter, and the ATE is held to the reference's within twice
-    the reference's own seed-to-seed spread around it, 0.037 m (ATE RMSE
-    over RANSAC seeds 0-3 on this sequence: reference 0.0307 / 0.0228 /
-    0.0124 / 0.0252 m, port 0.0217 / 0.0316 / 0.0243 / 0.0163 m; raw chains
-    0.070-0.095 m)."""
+    """The slice end to end on the CPU with its default draws, the
+    reference's for seed 0: the six TUM files, the graph cost falls, the
+    drift of the raw VO chain falls by more than a quarter, and the ATE is
+    held to the reference's within 1 cm, the replayed-draw tolerance of
+    ROADMAP C.2 (measured 2.8 mm; the reference's own seed-to-seed spread is
+    0.018 m: ATE RMSE 0.0307 / 0.0228 / 0.0124 / 0.0252 m over RANSAC seeds
+    0-3; raw chains 0.070-0.095 m)."""
     tvo = convert.vo_config_from_dict(dataclasses.asdict(JVOConfig(scale_mode="hold", ransac=JRansacConfig(**RANSAC_KW))))
     res = tpipe.run_experiment(loop_seqs[1], tvo, str(tmp_path), 0, backend="pose_graph", refine_cfg=_trefine_cfg(),
                                device="cpu")
@@ -423,7 +423,7 @@ def test_run_experiment_pose_graph_agrees(loop_seqs, jax_pg_run, tmp_path):
     assert info["n_bridge_pairs"] == jax_pg_run.backend_info["n_bridge_pairs"] and info["n_loop_edges"] >= 1
     assert np.isfinite(res.vo_abs).all()
     assert res.ate.rmse < 0.75 * chain
-    assert abs(res.ate.rmse - jax_pg_run.ate.rmse) < 0.037
+    assert abs(res.ate.rmse - jax_pg_run.ate.rmse) < 1e-2
 
 
 # --------------------------------------------------------------------------

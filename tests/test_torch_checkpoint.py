@@ -32,6 +32,7 @@ from droplet_visual_odometry_tpu_torch.estimation import vo as tvo
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu_torch.eval import tum as ttum
 from droplet_visual_odometry_tpu_torch.utils import checkpoint as tck
+from droplet_visual_odometry_tpu_torch.utils import threefry
 
 from torch_backend_data import jax_chunk_draws
 
@@ -184,8 +185,8 @@ def _reference_state_after_chunk_1(seq, path):
 def test_raising_progress_leaves_the_reference_state(seqs, jax_stream, tmp_path):
     """progress(stop, n) comes before the chunk's save, as in the reference:
     a callback that raises at chunk 2 leaves chunk 1 saved in both packages,
-    with the same next_start (5), the same entries (but the reference's
-    threefry key) and the same match counts."""
+    with the same next_start (5), the same entries (the run key among them,
+    equal) and the same match counts."""
     jp, tp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
     _reference_state_after_chunk_1(seqs[0], jp)
     with pytest.raises(KeyboardInterrupt):
@@ -193,7 +194,8 @@ def test_raising_progress_leaves_the_reference_state(seqs, jax_stream, tmp_path)
                                       progress=_stop_at_chunk_2, draws=jax_chunk_draws(0), device="cpu")
     js, ts = jck.load_state(jp), tck.load_state(tp)
     assert int(ts["next_start"]) == int(js["next_start"]) == CHUNK + 1
-    assert sorted(ts) == sorted(k for k in js if k != "key")  # the port seeds chunks, it keeps no threefry key
+    assert sorted(ts) == sorted(js)
+    np.testing.assert_array_equal(ts["key"], js["key"])
     np.testing.assert_array_equal(ts["n_matches"], js["n_matches"])
 
 
@@ -303,8 +305,10 @@ def test_one_chunk_equals_run_sequence():
 def test_padded_chunk_is_sliced_off():
     """Chunk sizes that do and do not pad the last chunk give the same
     trajectory length, finite values, and the same pairs where their draws
-    coincide (the first chunk of 3 pairs draws the same either way: its
-    generator is seeded from (seed, start) alone)."""
+    coincide (the first chunk of 3 pairs draws the same either way: its key
+    is fold_in(PRNGKey(seed), start), a function of (seed, start) alone, and
+    split's first keys do not depend on the count), with each chunk's key
+    that of the reference (checkpoint.py:127)."""
     args = _tiny()
     a = tck.run_sequence_checkpointed(*args, TINY_CFG, path=None, chunk=3, device="cpu")  # 6 pairs: 3 + 3
     b = tck.run_sequence_checkpointed(*args, TINY_CFG, path=None, chunk=4, device="cpu")  # 4 + 2 padded to 4
@@ -312,7 +316,10 @@ def test_padded_chunk_is_sliced_off():
         assert t.abs_poses.shape == (7, 4, 4) and t.n_matches.shape == (6,)
         assert np.isfinite(t.abs_poses).all() and np.isfinite(t.scales).all()
     np.testing.assert_array_equal(a.n_matches, b.n_matches)
-    assert tck.chunk_seed(0, 1) == tck.chunk_seed(0, 1) != tck.chunk_seed(0, 4) != tck.chunk_seed(1, 4)
+    for seed, start in ((0, 1), (0, 4), (1, 4)):
+        np.testing.assert_array_equal(threefry.fold_in(threefry.prng_key(seed), start).numpy(),
+                                      np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), start)).astype(np.int64))
+    np.testing.assert_array_equal(a.rel_poses[:3], b.rel_poses[:3])
 
 
 # --------------------------------------------------------------------------

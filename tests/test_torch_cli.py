@@ -5,9 +5,9 @@ One recorded-data path end to end: a 12-frame 448x336 synthetic sequence
 (the marker absent on two frames) written as a ROS1 bag with lz4 chunks by
 tests/torch_bag_data.py, converted by both packages' `convert --bag`
 (their .npz arrays equal), run by both `run_experiment --backend none`
-(the same summary keys and config; the ATE within 0.02 m, twice the
-reference's own seed-to-seed ATE spread on the bench workload, since the
-port draws RANSAC samples from a torch.Generator, not threefry), and read
+(the same summary keys and config; the ATE within 1 cm, the replayed-draw
+tolerance of ROADMAP C.2: both draw the same RANSAC samples for the seed,
+and XLA's jit moves the 8-point solves), and read
 back by both `analyze` on one TUM directory (reports within 1e-6). The JAX
 reference runs one convert and one run_experiment call.
 """
@@ -42,7 +42,7 @@ from droplet_visual_odometry_tpu_torch.utils import profiling
 import torch_bag_data as bags
 
 SEQ_CFG = dict(n_frames=12, width=448, height=336, n_landmarks=350)
-ATE_TOL = 0.02
+ATE_TOL = 1e-2
 REPORT_TOL = 1e-6
 
 

@@ -143,9 +143,9 @@ def test_pair_vo_uneven_batch_raises(ranks):
 
 
 def test_pair_vo_seeded_draws_equal_run_sequence(pair):
-    """pair_vo_batched draws its uniforms as run_sequence does (one
-    generator, hypotheses then the LO round), so on the same frames and
-    seed its rels equal run_sequence's bit for bit (marker scale mode)."""
+    """pair_vo_batched draws its uniforms as run_sequence does (pair i from
+    split(PRNGKey(seed), B)[i]), so on the same frames and seed its rels
+    equal run_sequence's bit for bit (marker scale mode)."""
     seq, cfg = pair["seq"], pair["cfg"]
     rels = tsharding.pair_vo_batched(*pair["args"], seed=3, device="cpu")
     traj = tvo.run_sequence(torch.from_numpy(seq.frames).float(), seq.marker_corners, seq.marker_present,

@@ -28,16 +28,13 @@ torch.set_num_threads(2)
 # parity.scenarios(quick=True)["clean"] (tests/test_torch_parity.py holds the
 # port's scenarios to parity.py's byte for byte).
 CLEAN_QUICK = dict(n_frames=30, width=640, height=480)
-# The JAX package's "ours none" on the quick clean scenario over RANSAC seeds
-# 0-3: ATE RMSE 0.044409 / 0.023878 / 0.050708 / 0.053451 m (parity.run_ours
-# on a CPU). The port draws from a torch.Generator, so its own row is held
-# within twice that spread of seed 0's.
-QUICK_NONE_TOL = 2 * (0.053451 - 0.023878)
-# With the JAX package's draws replayed the two runs differ by ROADMAP C.2's
-# divergence: XLA's jit moves the minimal 8-point solves, so near-tied MSAC
-# winners reshuffle on a few pairs (here 5 of 29, inlier counts within 2%,
-# relative poses within C.2's 1.2e-2), and the chain carries them: ATE within
-# 1 cm (measured 6.5 mm), a sixth of QUICK_NONE_TOL.
+# The port draws the JAX package's samples for the seed (utils/threefry.py),
+# and the two runs differ by ROADMAP C.2's divergence: XLA's jit moves the
+# minimal 8-point solves, so near-tied MSAC winners reshuffle on a few pairs
+# (here 5 of 29, inlier counts within 2%, relative poses within C.2's
+# 1.2e-2), and the chain carries them: ATE within 1 cm (measured 6.5 mm), a
+# sixth of twice the JAX package's own spread over RANSAC seeds 0-3 on this
+# scenario (ATE RMSE 0.044409 / 0.023878 / 0.050708 / 0.053451 m).
 REPLAYED_ATE_TOL = 1e-2
 REPLAYED_REL_TOL = 1.2e-2
 
@@ -61,9 +58,13 @@ def scenario_rows(clean):
 def test_run_scenario_clean_quick(clean, scenario_rows):
     """run_all (the reference chain's variants in spawned worker processes)
     gives parity.run_scenario's rows in the same order; the reference rows
-    equal (the same OpenCV chain on byte-equal frames); "ours none" within
-    QUICK_NONE_TOL of the JAX package's and ahead of the best reference
-    row."""
+    equal (the same OpenCV chain on byte-equal frames); "ours none", drawing
+    the JAX package's seed-0 samples, within REPLAYED_ATE_TOL of the JAX
+    package's row. parity.py's gates are not asserted here: it applies them
+    only at full size (quick mode is smoke only), and on this scenario the
+    JAX package's own seed-0 row, 0.044409 m, trails the best reference
+    row, 0.042052 m. chip_smoke.py's phase P asserts both gates on every
+    full-size scenario."""
     np.testing.assert_array_equal(clean[1].frames, clean[0].frames)
     want, (rows, walls) = scenario_rows
     assert set(rows) == {"clean"} and set(walls) == {"clean", "reference"}
@@ -74,9 +75,8 @@ def test_run_scenario_clean_quick(clean, scenario_rows):
             assert got[label] == want[label], label
     ours, ref = got["ours none"]["ate_rmse_m"], want["ours none"]["ate_rmse_m"]
     print(f"quick clean ours none: port {ours} JAX {ref}")
-    assert abs(ours - ref) <= QUICK_NONE_TOL
+    assert abs(ours - ref) <= REPLAYED_ATE_TOL
     assert got["ours none"]["seeds"] == 1
-    assert tparity.gate_failures({"clean": got}) == []
 
 
 def test_ours_none_with_replayed_draws(clean):

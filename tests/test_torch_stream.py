@@ -32,7 +32,8 @@ from droplet_visual_odometry_tpu_torch.core import se3 as tse3
 from droplet_visual_odometry_tpu_torch.data import synthetic as tsynth
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
-from droplet_visual_odometry_tpu_torch.stream import OnlineVO, step_seed
+from droplet_visual_odometry_tpu_torch.stream import OnlineVO
+from droplet_visual_odometry_tpu_torch.utils import threefry
 
 torch.set_num_threads(2)
 
@@ -191,8 +192,8 @@ def test_online_vo_matches_reference_with_its_draws(seq):
 def test_step_eager_is_the_next_push(seq):
     """step_eager(frame, markers) computes the next push's output without
     advancing the engine: on the CPU (where the push itself runs eagerly)
-    equal bit for bit to the push that follows, with the per-step seeded
-    draws of step_seed."""
+    equal bit for bit to the push that follows, with the per-step keys
+    fold_in(PRNGKey(seed), step) of the reference (stream.py:112)."""
     vo = _engine(seq)
     vo.push(seq.timestamps[0], seq.frames[0], _dets_for(seq, 0))
     for i in (1, 2):
@@ -200,7 +201,28 @@ def test_step_eager_is_the_next_push(seq):
         r = vo.push(seq.timestamps[i], seq.frames[i], _dets_for(seq, i))
         np.testing.assert_array_equal(want[:16].numpy().reshape(4, 4), r.rel)
         assert (int(want[16]), bool(want[17])) == (r.n_inliers, r.ok)
-    assert step_seed(0, 1) != step_seed(0, 2) and step_seed(0, 1) == step_seed(0, 1)
+    for step in (1, 2):
+        np.testing.assert_array_equal(threefry.fold_in(threefry.prng_key(0), step).numpy(),
+                                      np.asarray(jax.random.fold_in(jax.random.PRNGKey(0), step)).astype(np.int64))
+
+
+@pytest.mark.parametrize("frame", ["float32", "shape", "tensor_float32"])
+def test_frames_keep_the_first_shape_and_dtype(frame):
+    """The first frame pins the engine's frame shape and dtype (its graph's
+    static input on the card): a later frame of another dtype or shape, as
+    an array or a tensor, raises at push and at step_eager, and the engine
+    does not advance."""
+    small = tsynth.render_sequence(tsynth.SyntheticConfig(n_frames=3, width=160, height=120, n_landmarks=80))
+    vo = _engine(small, VOConfig(n_keypoints=64, ransac=RansacConfig(n_hypotheses=64, lo_hypotheses=16)))
+    vo.push(small.timestamps[0], small.frames[0], _dets_for(small, 0))
+    bad = {"float32": small.frames[1].astype(np.float32), "shape": small.frames[1][:-8],
+           "tensor_float32": torch.from_numpy(small.frames[1]).float()}[frame]
+    for call in (lambda: vo.step_eager(bad, _dets_for(small, 1)),
+                 lambda: vo.push(small.timestamps[1], bad, _dets_for(small, 1))):
+        with pytest.raises(ValueError, match="the engine's frames are"):
+            call()
+    assert vo._step == 0
+    assert vo.push(small.timestamps[1], torch.from_numpy(small.frames[1]), _dets_for(small, 1)).armed
 
 
 def test_sift_mode_online_vo_tracks(seq):

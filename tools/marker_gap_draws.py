@@ -2,14 +2,13 @@
 """The "ours none" row of parity.py's marker_gap scenario (render seed 3,
 scale_mode='hold') over RANSAC draws, in the PyTorch port on a CPU.
 
-    JAX_PLATFORMS=cpu python tools/marker_gap_draws.py [--jax-seeds 0 1 2 3] [--torch-seeds 0 ... 11] [--swap-ba]
+    JAX_PLATFORMS=cpu python tools/marker_gap_draws.py [--seeds 0 ... 11] [--swap-ba]
 
-Runs the port's run_sequence on the scenario twice over: with the JAX
-package's per-pair draws for each --jax-seeds seed replayed (split(PRNGKey(s),
-N-1), as the JAX package's run_sequence draws them), and with the port's own
-torch.Generator draws for each --torch-seeds seed. Prints one JSON line per
-run: the row's ATE RMSE (m), the scale the hold carries across the marker
-gap (the last live pair's) and the pairs that passed.
+Runs the port's run_sequence on the scenario for each seed, with its
+default draws: the JAX package's own per-pair draws for that seed
+(split(PRNGKey(s), N-1), utils/threefry.py). Prints one JSON line per run:
+the row's ATE RMSE (m), the scale the hold carries across the marker gap
+(the last live pair's) and the pairs that passed.
 
 --swap-ba: the "ours ba" row (seed 0) of the JAX package and of the port,
 each backend also on the other's frame-to-frame trajectory, to tell the
@@ -36,20 +35,9 @@ from droplet_visual_odometry_tpu_torch import parity, pipeline  # noqa: E402
 from droplet_visual_odometry_tpu_torch.estimation import vo  # noqa: E402
 
 
-def jax_draws(seed: int, n_pairs: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's run_sequence draws: one key per pair, the hypothesis
-    uniforms from the key and the LO uniforms from fold_in(key, 1)."""
-    keys = jax.random.split(jax.random.PRNGKey(seed), n_pairs)
-    n_hyp, n_lo = cfg.n_hypotheses * cfg.sample_size, cfg.lo_hypotheses * cfg.lo_sample_size
-    u_hyp = np.stack([np.asarray(jax.random.uniform(k, (n_hyp,))) for k in keys])
-    u_lo = np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(k, 1), (n_lo,))) for k in keys])
-    return torch.from_numpy(u_hyp), torch.from_numpy(u_lo)
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--jax-seeds", type=int, nargs="*", default=[0, 1, 2, 3])
-    parser.add_argument("--torch-seeds", type=int, nargs="*", default=list(range(12)))
+    parser.add_argument("--seeds", type=int, nargs="*", default=list(range(12)))
     parser.add_argument("--swap-ba", action="store_true")
     opts = parser.parse_args()
     seq = parity.scenarios(quick=False)["marker_gap"][0]
@@ -60,16 +48,13 @@ def main() -> int:
             seq.real_marker_length, cfg)
     present, gap = np.flatnonzero(seq.marker_present), np.flatnonzero(~seq.marker_present)
 
-    def report(draws: str, seed: int, traj) -> None:
+    def report(seed: int, traj) -> None:
         est = traj.abs_poses.numpy().astype(np.float64)[present]
-        print(json.dumps(dict(draws=draws, seed=seed, ate_rmse_m=parity.evaluate(seq, present, est)["ate_rmse_m"],
+        print(json.dumps(dict(seed=seed, ate_rmse_m=parity.evaluate(seq, present, est)["ate_rmse_m"],
                               held_scale=float(traj.scales[gap[0]]), ok_pairs=int(traj.ok.sum()))), flush=True)
 
-    for s in opts.jax_seeds:
-        u_hyp, u_lo = jax_draws(s, len(seq) - 1, cfg.ransac)
-        report("jax", s, vo.run_sequence(*args, u_hyp=u_hyp, u_lo=u_lo))
-    for s in opts.torch_seeds:
-        report("torch", s, vo.run_sequence(*args, seed=s))
+    for s in opts.seeds:
+        report(s, vo.run_sequence(*args, seed=s))
     if opts.swap_ba:
         swap_ba(seq, present)
     return 0
