@@ -7,7 +7,8 @@ are batched einsums; the landmark blocks Hll are inverted by the unrolled
 3x3 Cholesky of ops/linalg.py and the reduced camera system (6W x 6W) is
 solved densely. The first n_fixed poses are held (gauge). Accept and reject
 are branchless (torch.where) for all cfg.iters steps, so run_ba reads
-nothing back to the host inside its loop.
+nothing back to the host inside its loop, and on the card the whole loop is
+one captured CUDA graph (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.ops import linalg
+from droplet_visual_odometry_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,25 +171,47 @@ def schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed: int = 1) -> tuple[torch.Ten
     return dc, _back_substitute(Hcl, Hll_inv, bl, dc)
 
 
-def run_ba(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
-    """Levenberg-Marquardt windowed BA: cfg.iters steps, each accepted or
-    rejected on the device."""
+def _lm_step(window: BAWindow, poses, points, lam, cost, cfg: BAConfig):
+    """One Levenberg-Marquardt step, accepted or rejected on the device:
+    (poses, points, lam, cost) -> the same four after the step."""
+    huber, min_depth = cfg.huber_px, cfg.min_depth
+    Hcc, Hll, Hcl, bc, bl = _build_normal_blocks(window, poses, points, huber, min_depth)
+    dc, dx = schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed=cfg.n_fixed)
+    new_poses = se3.se3_exp(dc) @ poses
+    new_points = points + dx
+    new_cost, _, _ = reprojection_cost(window, new_poses, new_points, huber, min_depth)
+    ok = (new_cost < cost) & torch.isfinite(new_cost)
+    return (
+        torch.where(ok, new_poses, poses),
+        torch.where(ok, new_points, points),
+        torch.clamp(torch.where(ok, lam * cfg.lambda_down, lam * cfg.lambda_up), 1e-9, 1e6),
+        torch.where(ok, new_cost, cost),
+    )
+
+
+def run_ba_eager(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
+    """Levenberg-Marquardt windowed BA op by op on the window's device (the
+    captured program's twin): cfg.iters steps, each accepted or rejected on
+    the device."""
     huber, min_depth = cfg.huber_px, cfg.min_depth
     cost0, _, _ = reprojection_cost(window, window.poses, window.points, huber, min_depth)
     poses, points, cost = window.poses, window.points, cost0
     lam = torch.full((), cfg.init_lambda, dtype=poses.dtype, device=poses.device)
     for _ in range(cfg.iters):
-        Hcc, Hll, Hcl, bc, bl = _build_normal_blocks(window, poses, points, huber, min_depth)
-        dc, dx = schur_solve(Hcc, Hll, Hcl, bc, bl, lam, n_fixed=cfg.n_fixed)
-        new_poses = se3.se3_exp(dc) @ poses
-        new_points = points + dx
-        new_cost, _, _ = reprojection_cost(window, new_poses, new_points, huber, min_depth)
-        ok = (new_cost < cost) & torch.isfinite(new_cost)
-        poses = torch.where(ok, new_poses, poses)
-        points = torch.where(ok, new_points, points)
-        lam = torch.clamp(torch.where(ok, lam * cfg.lambda_down, lam * cfg.lambda_up), 1e-9, 1e6)
-        cost = torch.where(ok, new_cost, cost)
+        poses, points, lam, cost = _lm_step(window, poses, points, lam, cost, cfg)
     _, r, wgt = reprojection_cost(window, poses, points, huber, min_depth)
     n = torch.clamp(torch.sum(wgt > 0), min=1)
     rms = torch.sqrt(torch.sum(torch.where(wgt > 0, torch.sum(r * r, -1), 0.0)) / n)
     return BAResult(poses=poses, points=points, initial_cost=cost0, final_cost=cost, rms_px=rms)
+
+
+def run_ba(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
+    """Levenberg-Marquardt windowed BA: cfg.iters steps, each accepted or
+    rejected on the device. On a CUDA device this replays one captured CUDA
+    graph per (W, L, BAConfig), the whole LM loop (the reference's
+    jax.jit(run_ba)); elsewhere it runs run_ba_eager."""
+
+    def body(*tensors):
+        return run_ba_eager(BAWindow(*tensors), cfg)
+
+    return graphs.run("run_ba", body, tuple(window), cfg, window.poses.device)

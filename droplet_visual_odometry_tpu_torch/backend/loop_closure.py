@@ -35,7 +35,7 @@ import torch
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult, two_frame_vo
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features, unpack_bits_pm1
-from droplet_visual_odometry_tpu_torch.utils import threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,13 +147,47 @@ def _verify_candidates(
     u_lo: torch.Tensor,
 ) -> VOStepResult:
     """two_frame_vo over the candidate pairs (ca[p], cb[p]), batched in one
-    call, on the RANSAC uniforms u_hyp (P, H*8) and u_lo (P, 2, L*14)."""
+    call, on the RANSAC uniforms u_hyp (P, H*8) and u_lo (P, 2, L*14). The
+    pairs' features, corners and marker flags are gathered first; on a CUDA
+    device two_frame_vo then replays one captured CUDA graph per (P, K,
+    VOConfig) (the reference's jitted _verify_candidates), elsewhere it runs
+    eagerly."""
+    inputs = _verify_inputs(feats, corners, mvalid, K, ca, cb, u_hyp, u_lo)
+    body = functools.partial(_verify_body, vo_cfg=vo_cfg, real_marker_length=float(real_marker_length))
+    return graphs.run("verify", body, inputs, (vo_cfg, float(real_marker_length)), corners.device)
+
+
+def _verify_candidates_eager(
+    feats: Features,
+    corners: torch.Tensor,
+    mvalid: torch.Tensor,
+    K: torch.Tensor,
+    real_marker_length: float,
+    vo_cfg: VOConfig,
+    ca: np.ndarray,
+    cb: np.ndarray,
+    u_hyp: torch.Tensor,
+    u_lo: torch.Tensor,
+) -> VOStepResult:
+    """_verify_candidates op by op on any device: the captured program's twin."""
+    inputs = _verify_inputs(feats, corners, mvalid, K, ca, cb, u_hyp, u_lo)
+    return _verify_body(*inputs, vo_cfg=vo_cfg, real_marker_length=float(real_marker_length))
+
+
+def _verify_inputs(feats, corners, mvalid, K, ca, cb, u_hyp, u_lo) -> tuple:
+    """The verification program's inputs: both sides' features (5 + 5
+    tensors), corners (P, 4, 2) x2, the pairs' marker flags (P,), K, the
+    uniforms."""
     a = torch.as_tensor(ca, dtype=torch.int64, device=corners.device)
     b = torch.as_tensor(cb, dtype=torch.int64, device=corners.device)
-    return two_frame_vo(
-        Features(*(t[a] for t in feats)), Features(*(t[b] for t in feats)),
-        corners[a], corners[b], mvalid[a] & mvalid[b], K, real_marker_length, vo_cfg, u_hyp, u_lo,
-    )
+    return (*(t[a] for t in feats), *(t[b] for t in feats), corners[a], corners[b], mvalid[a] & mvalid[b],
+            K, u_hyp, u_lo)
+
+
+def _verify_body(*tensors, vo_cfg: VOConfig, real_marker_length: float) -> VOStepResult:
+    fa, fb = Features(*tensors[:5]), Features(*tensors[5:10])
+    corners_a, corners_b, mv, K, u_hyp, u_lo = tensors[10:]
+    return two_frame_vo(fa, fb, corners_a, corners_b, mv, K, real_marker_length, vo_cfg, u_hyp, u_lo)
 
 
 @functools.lru_cache(maxsize=16)

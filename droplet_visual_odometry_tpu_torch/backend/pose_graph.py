@@ -29,6 +29,7 @@ import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.parallel.sharding import broadcast, local_shard, psum
+from droplet_visual_odometry_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,32 +203,66 @@ def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: 
     return _pcg(matvec, b, Minv, cfg.cg_iters, cfg.cg_tol)
 
 
-def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
-    """Gauss-Newton with the first node held fixed (gauge), on the graph's
-    device; a step is kept only if it lowers the cost.
+def _gn_step(graph: PoseGraph, poses: torch.Tensor, cur_cost: torch.Tensor, cfg: PoseGraphConfig, mesh=None):
+    """One Gauss-Newton step from (poses, cur_cost): the step is kept only
+    if it lowers the cost (decided on the device). Returns the new pair."""
+    M = poses.shape[0]
+    B, g = _edge_blocks(poses, graph)
+    if cfg.solver == "dense":
+        dx = _solve_dense(M, graph, B, g, cfg.damping)
+    else:
+        dx = _solve_pcg(M, graph, B, g, cfg, mesh)
+    # b accumulated -grad blocks (b_i = +J_j^T W r = -grad_i), so dx is
+    # already the descent step.
+    new_poses = se3.se3_exp(dx) @ poses
+    new_cost = cost(graph._replace(poses=new_poses))
+    ok = (new_cost < cur_cost) & torch.isfinite(new_cost)
+    return torch.where(ok, new_poses, poses), torch.where(ok, new_cost, cur_cost)
 
-    mesh: an optional parallel.sharding.Mesh (every rank of it calls
-    optimize on the same graph): the PCG's Hessian-vector products run
-    edge-sharded over it, one all_reduce of (M, 6) per CG step. The CG stop
-    test stays on the device, so every rank issues the same collectives."""
+
+def optimize_eager(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
+    """Gauss-Newton op by op on the graph's device (the captured program's
+    twin, and the mesh form): cfg.iters steps, each accepted or rejected on
+    the device."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
     initial = cost(graph)
     poses, cur_cost = graph.poses, initial
-    M = poses.shape[0]
     for _ in range(cfg.iters):
-        B, g = _edge_blocks(poses, graph)
-        if cfg.solver == "dense":
-            dx = _solve_dense(M, graph, B, g, cfg.damping)
-        else:
-            dx = _solve_pcg(M, graph, B, g, cfg, mesh)
-        # b accumulated -grad blocks (b_i = +J_j^T W r = -grad_i), so dx is
-        # already the descent step.
-        new_poses = se3.se3_exp(dx) @ poses
-        new_cost = cost(graph._replace(poses=new_poses))
-        ok = (new_cost < cur_cost) & torch.isfinite(new_cost)
-        poses = torch.where(ok, new_poses, poses)
-        cur_cost = torch.where(ok, new_cost, cur_cost)
+        poses, cur_cost = _gn_step(graph, poses, cur_cost, cfg, mesh)
+    return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
+
+
+def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
+    """Gauss-Newton with the first node held fixed (gauge), on the graph's
+    device; a step is kept only if it lowers the cost.
+
+    On a CUDA device without a mesh, each GN step (its CG steps and the
+    accept test) replays one captured CUDA graph per (M, E, weight form,
+    PoseGraphConfig): the body of the reference's optimize_jit loop. Poses
+    and cost are copied into the step's input buffers and cloned out of its
+    outputs at every replay. (On the H100 the whole loop as one graph
+    replayed no faster, and took 15x longer to capture: PERF.md section 6.)
+    Callers pad to next_bucket sizes, so a few programs cover every run.
+    Elsewhere it runs optimize_eager.
+
+    mesh: an optional parallel.sharding.Mesh (every rank of it calls
+    optimize on the same graph): the PCG's Hessian-vector products run
+    edge-sharded over it, one all_reduce of (M, 6) per CG step. The CG stop
+    test stays on the device, so every rank issues the same collectives.
+    The mesh form runs op by op: its collectives are not captured."""
+    if cfg.solver not in ("pcg", "dense"):
+        raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
+    if mesh is not None:
+        return optimize_eager(graph, cfg, mesh)
+
+    def step(poses, cur_cost, *tensors):
+        return _gn_step(PoseGraph(*tensors), poses, cur_cost, cfg)
+
+    initial = cost(graph)
+    poses, cur_cost = graph.poses, initial
+    for _ in range(cfg.iters):
+        poses, cur_cost = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg, graph.poses.device)
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
 
 

@@ -14,9 +14,12 @@ of each pair, BFMatcher crosscheck, findEssentialMat RANSAC, recoverPose and
 the marker-corner triangulation; `bench_reference_cpu` and
 `_reference_cpu_pass` are bench.py's, copied), on the same synthetic frames
 at the reference's 1440x1080. Ours is estimation/vo.run_sequence on the
-card with the reference's own RANSAC draws for seed 0. `--stages` adds the
-per-stage breakdown on stderr, `--online` times OnlineVO's push, `--stream`
-runs the reference's 25,075-frame length through the streaming path.
+card with the reference's own RANSAC draws for seed 0: its warm-up call
+captures the program as one CUDA graph (utils/graphs.py) and the timed runs
+replay it. `--stages` adds the per-stage breakdown on stderr, each stage run
+eagerly on its own (not through the graph), `--online` times OnlineVO's
+push, `--stream` runs the reference's 25,075-frame length through the
+streaming path (every chunk a replay of one captured program).
 
 There is no device probe and no fallback: without a GPU the run raises
 unless `--device cpu` is given (bench.py's probe-then-CPU route works
@@ -133,7 +136,8 @@ def _reference_cpu_pass(seq) -> float:
 
 def bench_ours(seq, device="cuda") -> float:
     """run_sequence with VOConfig() and seed 0's draws on `device`: one
-    warm-up run, then the mean wall of N_REP runs; (N-1) / wall."""
+    warm-up run (on the card it captures the program), then the mean wall
+    of N_REP runs (replays); (N-1) / wall."""
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
     from droplet_visual_odometry_tpu_torch.utils import threefry
     from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
@@ -159,7 +163,8 @@ def bench_ours(seq, device="cuda") -> float:
 
 def bench_stages(seq, device="cuda") -> dict:
     """Per-stage attribution of run_sequence at the sequence's shapes, each
-    stage run alone on the outputs of the one before with device-synchronised
+    stage run alone and op by op (eager, not the captured program) on the
+    outputs of the one before with device-synchronised
     walls (utils.profiling.StageTimes), printed to stderr (the stdout
     contract stays one JSON line), with FAST's achieved HBM rate against the
     card's 3.35 TB/s. Returns {stage: ms per frame}."""
@@ -220,7 +225,7 @@ def bench_stages(seq, device="cuda") -> dict:
     rep = times.report()
     per_frame = {k: v["total_s"] / reps / n * 1e3 for k, v in rep.items()}
     total = sum(per_frame.values())
-    print(f"\n== per-stage breakdown (ms/frame, {w}x{h}, K={cfg.n_keypoints}, pyramid "
+    print(f"\n== per-stage breakdown, each stage eager (ms/frame, {w}x{h}, K={cfg.n_keypoints}, pyramid "
           f"{cfg.n_levels}x{cfg.scale_factor}, {dev}) ==", file=sys.stderr)
     for k in sorted(per_frame, key=per_frame.get, reverse=True):
         print(f"  {k:<26s} {per_frame[k]:7.3f} ms  ({100 * per_frame[k] / total:4.1f}%)", file=sys.stderr)

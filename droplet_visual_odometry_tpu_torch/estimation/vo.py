@@ -4,6 +4,9 @@ port of droplet_visual_odometry_tpu/estimation/vo.py.
 The frontend runs once over all frames; then all N-1 pairs are matched and
 estimated at once (the reference's vmap over pairs is the leading pair
 dimension here); the 'hold' scale fill and the pose chain finish the run.
+On the card `run_sequence` is one captured CUDA graph per (N, H, W, frame
+dtype, VOConfig, draw form), as the reference's is one jitted program
+(utils/graphs.py); `run_sequence_eager` is the same program op by op.
 
 Pose conventions (unchanged): rel = curr_T_prev, abs_curr = rel @ abs_prev.
 """
@@ -11,6 +14,7 @@ Pose conventions (unchanged): rel = curr_T_prev, abs_curr = rel @ abs_prev.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,7 +25,7 @@ from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig, ra
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
-from droplet_visual_odometry_tpu_torch.utils import threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +117,8 @@ class VOTrajectory(NamedTuple):
 
 def hold_fill(scales: torch.Tensor, scale_ok: torch.Tensor, init_scale: float | torch.Tensor) -> torch.Tensor:
     """Forward-fill the last live scale, seeded by init_scale: the reference's
-    associative 'last valid' scan as an index prefix-max (exact)."""
+    associative 'last valid' scan as an index prefix-max (exact). Inside a
+    captured program init_scale is a device tensor (no host data)."""
     s_seed = torch.cat([torch.as_tensor(init_scale, dtype=torch.float32, device=scales.device).reshape(1), scales])
     live = torch.cat([torch.ones(1, dtype=torch.bool, device=scales.device), scale_ok])
     idx = torch.where(live, torch.arange(live.numel(), device=scales.device), torch.zeros_like(live, dtype=torch.int64))
@@ -127,6 +132,86 @@ def chain_poses(init_pose: torch.Tensor, rels: torch.Tensor) -> torch.Tensor:
     for i in range(rels.shape[0]):
         out.append(rels[i] @ out[-1])
     return torch.stack(out)
+
+
+def _sequence_body(
+    frames: torch.Tensor,
+    corners: torch.Tensor,
+    present: torch.Tensor,
+    init_pose: torch.Tensor,
+    K: torch.Tensor,
+    init_scale: torch.Tensor,
+    key: torch.Tensor | None,
+    u_hyp: torch.Tensor | None,
+    u_lo: torch.Tensor | None,
+    *,
+    cfg: VOConfig,
+    real_marker_length: float,
+) -> VOTrajectory:
+    """The program of run_sequence, on staged device tensors: corners (N, 4,
+    2) float32 with NaN where absent, present (N,) bool, init_pose (4, 4)
+    and K (3, 3) float32, init_scale () float32, and either the run key (2,)
+    int64 or u_hyp/u_lo. No host read and no host data inside."""
+    keys = None
+    if u_hyp is None:
+        keys = threefry.split(key, frames.shape[0] - 1)
+    corners = torch.nan_to_num(corners)
+
+    feats = detect_and_describe_batch(
+        frames,
+        k=cfg.n_keypoints,
+        threshold=cfg.fast_threshold,
+        arc_length=cfg.fast_arc_length,
+        mode=cfg.frontend,
+        dog_threshold=cfg.dog_threshold,
+        n_levels=cfg.n_levels if cfg.frontend == "orb" else 1,
+        scale_factor=cfg.scale_factor,
+    )
+    feats_prev = Features(*(a[:-1] for a in feats))
+    feats_curr = Features(*(a[1:] for a in feats))
+    res = two_frame_vo(
+        feats_prev, feats_curr, corners[:-1], corners[1:], present[:-1] & present[1:],
+        K, real_marker_length, cfg, u_hyp, u_lo, keys,
+    )
+
+    if cfg.scale_mode == "hold":
+        scales = hold_fill(res.scale, res.scale_ok, init_scale)
+        rels = res.rel_unit.clone()
+        rels[:, :3, 3] = rels[:, :3, 3] * scales[:, None]
+    else:
+        scales = res.scale
+        rels = res.rel
+
+    return VOTrajectory(
+        abs_poses=chain_poses(init_pose, rels),
+        rel_poses=rels,
+        n_matches=res.n_matches,
+        n_inliers=res.n_inliers,
+        scales=scales,
+        scale_ok=res.scale_ok,
+        ok=res.ok,
+    )
+
+
+def _sequence_program(
+    frames, marker_corners, marker_present, init_pose, K, real_marker_length, cfg, seed, u_hyp, u_lo,
+    init_scale, key,
+) -> tuple[tuple, dict]:
+    """run_sequence's arguments as the program's inputs (host values become
+    tensors here, outside the program) and its static part."""
+    if cfg.scale_mode not in ("marker", "hold"):
+        raise ValueError(f"unknown scale_mode: {cfg.scale_mode}")
+    if u_hyp is None:
+        key = threefry.prng_key(seed, frames.device) if key is None else key
+    else:
+        key = None
+    f32 = torch.float32
+    inputs = (
+        frames, torch.as_tensor(marker_corners, dtype=f32), torch.as_tensor(marker_present, dtype=torch.bool),
+        torch.as_tensor(init_pose, dtype=f32), torch.as_tensor(K, dtype=f32),
+        torch.as_tensor(init_scale, dtype=f32).reshape(()), key, u_hyp, u_lo,
+    )
+    return inputs, dict(cfg=cfg, real_marker_length=float(real_marker_length))
 
 
 def run_sequence(
@@ -157,50 +242,39 @@ def run_sequence(
     chunk and whether a live scale has been seen. The fill holds init_scale
     until the chunk's first live scale; as in the reference, the seen flag
     does not change the filled values.
+
+    On a CUDA device this replays the program captured for the call's
+    static signature (captured at its first call); host values (corners,
+    flags, poses, K, init_scale, the seed's key) are staged into the
+    program's inputs outside it. Elsewhere it runs the body eagerly.
     """
-    if cfg.scale_mode not in ("marker", "hold"):
-        raise ValueError(f"unknown scale_mode: {cfg.scale_mode}")
-    dev = frames.device
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    corners = torch.nan_to_num(torch.as_tensor(marker_corners, dtype=torch.float32, device=dev))
-    present = torch.as_tensor(marker_present, dtype=torch.bool, device=dev)
-    keys = None
-    if u_hyp is None:
-        key = threefry.prng_key(seed, dev) if key is None else key.to(dev)
-        keys = threefry.split(key, frames.shape[0] - 1)
-
-    feats = detect_and_describe_batch(
-        frames,
-        k=cfg.n_keypoints,
-        threshold=cfg.fast_threshold,
-        arc_length=cfg.fast_arc_length,
-        mode=cfg.frontend,
-        dog_threshold=cfg.dog_threshold,
-        n_levels=cfg.n_levels if cfg.frontend == "orb" else 1,
-        scale_factor=cfg.scale_factor,
+    inputs, static = _sequence_program(
+        frames, marker_corners, marker_present, init_pose, K, real_marker_length, cfg, seed, u_hyp, u_lo,
+        init_scale, key,
     )
-    feats_prev = Features(*(a[:-1] for a in feats))
-    feats_curr = Features(*(a[1:] for a in feats))
-    res = two_frame_vo(
-        feats_prev, feats_curr, corners[:-1], corners[1:], present[:-1] & present[1:],
-        K, real_marker_length, cfg, u_hyp, u_lo, keys,
-    )
+    body = functools.partial(_sequence_body, **static)
+    return graphs.run("run_sequence", body, inputs, tuple(static.values()), frames.device)
 
-    if cfg.scale_mode == "hold":
-        scales = hold_fill(res.scale, res.scale_ok, init_scale)
-        rels = res.rel_unit.clone()
-        rels[:, :3, 3] = rels[:, :3, 3] * scales[:, None]
-    else:
-        scales = res.scale
-        rels = res.rel
 
-    abs_poses = chain_poses(torch.as_tensor(init_pose, dtype=torch.float32, device=dev), rels)
-    return VOTrajectory(
-        abs_poses=abs_poses,
-        rel_poses=rels,
-        n_matches=res.n_matches,
-        n_inliers=res.n_inliers,
-        scales=scales,
-        scale_ok=res.scale_ok,
-        ok=res.ok,
+def run_sequence_eager(
+    frames: torch.Tensor,
+    marker_corners: torch.Tensor,
+    marker_present: torch.Tensor,
+    init_pose: torch.Tensor,
+    K: torch.Tensor,
+    real_marker_length: float,
+    cfg: VOConfig = VOConfig(),
+    seed: int = 0,
+    u_hyp: torch.Tensor | None = None,
+    u_lo: torch.Tensor | None = None,
+    init_scale: float | torch.Tensor = 1.0,
+    init_scale_seen: bool | torch.Tensor = False,
+    *,
+    key: torch.Tensor | None = None,
+) -> VOTrajectory:
+    """run_sequence op by op on any device: the captured program's twin."""
+    inputs, static = _sequence_program(
+        frames, marker_corners, marker_present, init_pose, K, real_marker_length, cfg, seed, u_hyp, u_lo,
+        init_scale, key,
     )
+    return _sequence_body(*(None if x is None else x.to(frames.device) for x in inputs), **static)

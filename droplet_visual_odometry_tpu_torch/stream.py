@@ -43,7 +43,7 @@ from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, two_frame_
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 from droplet_visual_odometry_tpu_torch.groundtruth import GroundTruthConfig, MarkerDetections, marker_pose_to_cTm
-from droplet_visual_odometry_tpu_torch.utils import threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 Draws = Callable[[int], tuple[torch.Tensor, torch.Tensor | None]]
@@ -53,13 +53,6 @@ DRAW_BLOCK = 256  # pushes whose draws one batched threefry call makes
 # Byte layout of the staging buffer: previous and current marker corners
 # (4 x 2 float32 each), the marker flag, then the raw frame 16-byte aligned.
 _PC, _CC, _MV, _FRAME = 0, 32, 64, 80
-
-
-def _launch_counts() -> dict[str, int]:
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
-
-    return {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
-            "hamming_match": cuda_match.LAUNCHES}
 
 
 def ring_draws(key: torch.Tensor, ransac_cfg) -> Draws:
@@ -347,13 +340,13 @@ class OnlineVO:
             body()  # warm-up: no carry, so the static previous features stay as they are
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
+        before = graphs.launch_counts()
         with torch.cuda.graph(graph):
             feats_curr, out = body()
             for dst, src in zip(st["prev"], feats_curr):
                 dst.copy_(src)
             st["out"] = out
-        self.captured_launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        self.captured_launches = {k: v - before[k] for k, v in graphs.launch_counts().items()}
         self._graph = graph
 
     # -- helpers ------------------------------------------------------------

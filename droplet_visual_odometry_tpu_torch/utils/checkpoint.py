@@ -12,7 +12,11 @@ last completed chunk.
 data.native_store.StoreFrames): only one chunk of raw frames crosses to the
 device at a time, through one page-locked host buffer reused for every
 chunk, and `preprocess` (the uint8 -> float32 cast and undistortion) runs on
-the device inside the loop. Whole-sequence frames never exist on the device.
+the device inside the loop, outside the VO program (as the reference's remap
+is jitted apart). Whole-sequence frames never exist on the device. Every
+chunk, the padded last one included, has one shape, so on the card every
+chunk replays one captured run_sequence program (utils/graphs.py), its
+preprocessed frames copied device to device into the program's input.
 
 Random draws: the reference's. The chunk whose first pair ends at frame
 `start` runs under fold_in(key, start) (checkpoint.py:127), a function of
