@@ -68,22 +68,23 @@ Phases (any failure raises, so the exit code is non-zero):
   7a. the JAX package's compiled programs as CUDA graphs (phase G,
      utils/graphs.py): run_sequence on the bench workload (24 frames) and on
      the stream cell's first chunk (257 frames), each replay bit for bit
-     against run_sequence_eager; the keyframe stack's frontend (phase 5's
-     41 keyframes at k = 1024) captured as a graph, which the port does not
-     ship (device-bound: measured, bit for bit against
-     detect_and_describe_batch); pose_graph.optimize on phase 5's padded
+     against run_sequence_eager; pose_graph.optimize on phase 5's padded
      graph, one GN step a replay (the module's form) and the whole GN loop
      as one graph (the other form, timed in turns beside it), within
      GRAPH_TOL of optimize_eager, and pose_graph_trajectory through the
      graphs against op by op (loop pairs equal, poses within GRAPH_TOL);
-     run_ba on phase 6's windows (the whole LM loop, the module's form, and
-     one LM step a replay) within GRAPH_TOL of run_ba_eager, and
-     refine_trajectory's accepted windows and poses against op by op;
-     loop-closure verification at P = 128, K = 1024 bit for bit against its
-     eager twin. Each program captured afresh: capture wall, first call,
-     replay wall, eager wall, the replay's device span (CUDA events around
-     graph.replay()), graph memory, launches captured; one JSON line
-     {"graphs": ...} with the phase's wall;
+     run_ba on phase 6's windows (the whole LM loop) within GRAPH_TOL of
+     run_ba_eager, and refine_trajectory's accepted windows and poses
+     against op by op; loop-closure verification at P = 128, K = 1024 bit
+     for bit against its eager twin. Each program captured afresh: capture
+     wall, first call, replay wall, eager wall, the replay's device span
+     (CUDA events around graph.replay()), graph memory, launches captured.
+     Then the JAX package's other jitted calls, which the port runs op by
+     op, weighed for capture at the main path's shapes (retrieval's global
+     descriptors, similarity and match counts, derive_ground_truth, the
+     preprocessor's cast and remap): wall and its spread, kernels and their
+     device time, event span. One JSON line {"graphs": ...} with the
+     phase's wall;
   7b. ingest and the CLIs (phase I), on the stream phase's 400 frames: 8 of
      them as bags with none, bz2 and lz4 chunks (mono8, rgb8 and bgr8
      images) read to equal arrays, and as PNG CompressedImage messages;
@@ -144,13 +145,18 @@ Phases (any failure raises, so the exit code is non-zero):
      phase's wall;
   10. multi-device (phase M), parallel/ on torch.distributed, one card:
      M1, a world of one rank over NCCL (launch.initialize with a
-     coordinator): shard_pair_vo on the loop's first 32 pairs with
-     VOConfig() and seeded draws (launch counters 4/4/>=1, the rels equal to
-     pair_vo_batched's and to run_sequence's on the same 33 frames and draws
-     bit for bit), the kernels at its shapes (64 frames, the match at
-     P = 32) against their twins, the edge-sharded pose_graph.optimize on
-     phase 5's graph and run_ba_distributed on phase 6's windows against
-     their one-device forms, warm walls and the NCCL all_reduce latency;
+     coordinator), where the sharded programs are CUDA graphs with their
+     NCCL collectives inside: shard_pair_vo on the loop's first 32 pairs
+     with VOConfig() and seeded draws (launch counters 8/8/2, one capture
+     of 4/4/1 a replay; the rels equal to pair_vo_batched's and to
+     run_sequence's on the same 33 frames and draws bit for bit), the
+     kernels at its shapes (64 frames, the match at P = 32) against their
+     twins, the edge-sharded pose_graph.optimize on phase 5's graph and
+     run_ba_distributed on phase 6's windows against their one-device
+     forms, each sharded program as a row of phase G's kind against its
+     eager twin (bit for bit; optimize within MESH_PCG_TOL), warm walls of
+     the captured and eager forms and the NCCL all_reduce latency; its
+     teardown drops the mesh's programs before destroying the group;
      M2, two spawned ranks sharing cuda:0 over gloo on CUDA tensors: M1's
      three calls held to like-for-like references made in M1 (see the
      constants), the gloo all_reduce latency, and
@@ -166,7 +172,8 @@ Phases (any failure raises, so the exit code is non-zero):
      for run_sequence, the top aten ops by count), printed as one JSON line
      {"profile": {...}}.
 The VO program (run_sequence), the pose-graph GN step, BA and verification
-are captured CUDA graphs on the card (phase G). A kernel's launch counter
+are captured CUDA graphs on the card (phase G), and so are the sharded
+programs over an NCCL mesh (M1). A kernel's launch counter
 ticks where its wrapper's Python runs: in a program's warm-up and its
 capture (CAPTURE_TICKS times a capture), never on a replay. Every counted
 run starts with the counters at 0 and no program captured
@@ -1468,9 +1475,42 @@ def program_row(label: str, graphed, eager, check, reps: int = 5) -> dict:
     return row
 
 
+def eager_call_row(label: str, fn, reps: int = 7) -> dict:
+    """A call the port runs op by op, weighed for capture as a program:
+    its synchronised wall (median and spread, max - min, of `reps` calls
+    after two), the CUDA kernels it launches and their device time a call
+    (torch.profiler over 3 calls), and the span between CUDA events around
+    it. A graph could save at most wall - device time; capturing pays only
+    where that exceeds the spread."""
+    for _ in range(2):
+        fn()
+    walls, spans = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+    prof, _ = device_profile(fn, runs=3, top=3)
+    row = dict(wall_ms=float(np.median(walls)), wall_spread_ms=max(walls) - min(walls),
+               event_span_ms=float(np.median(spans)), kernels=prof["kernels_per_run"],
+               device_busy_ms=prof["device_busy_ms_per_run"], top_kernels=prof["top_kernels_ms_per_run"])
+    row["host_ms_a_graph_could_save"] = row["wall_ms"] - row["device_busy_ms"]
+    row["capture_could_pay"] = row["host_ms_a_graph_could_save"] > row["wall_spread_ms"]
+    log(f"G op by op, {label}: wall {row['wall_ms']:.4f} ms (spread {row['wall_spread_ms']:.4f}), "
+        f"{row['kernels']:.0f} kernels, device busy {row['device_busy_ms']:.4f} ms, event span "
+        f"{row['event_span_ms']:.4f} ms; a graph could save at most {row['host_ms_a_graph_could_save']:.4f} ms")
+    return row
+
+
 def equal_fields(a, b) -> float:
-    """0.0 if every tensor field of a equals b's bit for bit, else raise."""
-    for name, x, y in zip(type(a)._fields, a, b):
+    """0.0 if every tensor field of a (or a itself, a tensor) equals b's bit
+    for bit, else raise."""
+    for name, x, y in zip(type(a)._fields, a, b) if hasattr(a, "_fields") else [("value", a, b)]:
         if not torch.equal(x, y):
             raise AssertionError(f"replay differs from the eager twin in {name}: "
                                  f"{float((x.double() - y.double()).abs().max())!r}")
@@ -1500,40 +1540,6 @@ def optimize_whole_loop(graph, cfg):
     return graphs.run("optimize_loop", body, tuple(graph), cfg, graph.poses.device)
 
 
-def keyframe_frontend_graph(frames, **kw):
-    """detect_and_describe_batch on a keyframe stack as a captured program
-    (the reference jits it, features.py:125). Not shipped: the stack's
-    frontend is device-bound (phase G's row), so a graph saves no time and
-    a cold run would pay its capture."""
-    import functools
-
-    from droplet_visual_odometry_tpu_torch.frontend import features
-    from droplet_visual_odometry_tpu_torch.utils import graphs
-
-    body = functools.partial(features.detect_and_describe_batch, **kw)
-    return graphs.run("keyframe_frontend", body, (frames,), tuple(sorted(kw.items())), frames.device)
-
-
-def run_ba_stepwise(window, cfg):
-    """ba.run_ba as one captured LM step replayed cfg.iters times."""
-    from droplet_visual_odometry_tpu_torch.backend import ba
-    from droplet_visual_odometry_tpu_torch.utils import graphs
-
-    def step(poses, points, lam, cost, *w):
-        return ba._lm_step(ba.BAWindow(*w), poses, points, lam, cost, cfg)
-
-    cost0, _, _ = ba.reprojection_cost(window, window.poses, window.points, cfg.huber_px, cfg.min_depth)
-    poses, points, cost = window.poses, window.points, cost0
-    lam = torch.full((), cfg.init_lambda, dtype=poses.dtype, device=poses.device)
-    for _ in range(cfg.iters):
-        poses, points, lam, cost = graphs.run("run_ba_step", step, (poses, points, lam, cost, *window), cfg,
-                                              poses.device)
-    _, r, wgt = ba.reprojection_cost(window, poses, points, cfg.huber_px, cfg.min_depth)
-    n = torch.clamp(torch.sum(wgt > 0), min=1)
-    rms = torch.sqrt(torch.sum(torch.where(wgt > 0, torch.sum(r * r, -1), 0.0)) / n)
-    return ba.BAResult(poses=poses, points=points, initial_cost=cost0, final_cost=cost, rms_px=rms)
-
-
 def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     """Phase G: the JAX package's four compiled programs as CUDA graphs
     (utils/graphs.py), each captured afresh and replayed at the main path's
@@ -1541,11 +1547,11 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     workload (N = 24) and on a stream chunk (N = 257, the stream cell's
     first chunk) bit for bit; pose_graph.optimize on phase 5's padded graph
     (the whole GN loop as one graph, and one GN step replayed per
-    iteration, the two timed in turns) and run_ba on phase 6's windows (the whole LM loop, and one
-    LM step a replay) within GRAPH_TOL, with refine_trajectory's accepted
+    iteration, the two timed in turns) and run_ba on phase 6's windows (the
+    whole LM loop) within GRAPH_TOL, with refine_trajectory's accepted
     windows equal; loop-closure verification at phase 5's P = 128, K = 1024
     bit for bit. Each row: capture wall, replay wall, eager wall, device
-    span, graph memory, launches captured."""
+    span, graph memory, launches captured. Then op_by_op_rows."""
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.backend import ba, loop_closure, pose_graph, refine
     from droplet_visual_odometry_tpu_torch.estimation import vo
@@ -1579,17 +1585,7 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     del chunk
     graphs.clear()
 
-    # The keyframe stack's frontend (phase 5's 41 keyframes at k = 1024) as a program of its own: measured
-    # here, not shipped (the backends run it op by op; see keyframe_frontend_graph).
-    from droplet_visual_odometry_tpu_torch.frontend import features
-
-    d, kcfg = pg["inputs"], pg["inputs"]["cfg"]
-    kw = dict(k=kcfg.n_keypoints, threshold=kcfg.fast_threshold)
-    rows["keyframe_frontend"] = program_row(
-        f"keyframe frontend as a graph, not shipped ({tuple(d['kf_frames'].shape)[0]} x 1440x1080, k = {kw['k']})",
-        lambda: keyframe_frontend_graph(d["kf_frames"], **kw),
-        lambda: features.detect_and_describe_batch(d["kf_frames"], **kw), equal_fields)
-    graphs.clear()
+    d = pg["inputs"]
 
     # pose_graph.optimize on phase 5's padded graph: the whole loop, then one GN step a replay.
     graph, cfg_pg = pg["graph"], pg["inputs"]["cfg"].pg
@@ -1640,8 +1636,6 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
         label = f"W = {wshape[0]}, L = {lshape[0]}"
         ba_rows.append(dict(window=label, loop=program_row(
             f"run_ba, the whole LM loop ({label}, {cfg_ba.iters} steps)", lambda: ba.run_ba(w, cfg_ba),
-            lambda: ba.run_ba_eager(w, cfg_ba), ba_check), step=program_row(
-            f"run_ba, one LM step a replay ({label})", lambda: run_ba_stepwise(w, cfg_ba),
             lambda: ba.run_ba_eager(w, cfg_ba), ba_check)))
     per_window = [ba_check(ba.run_ba(w, c), ba.run_ba_eager(w, c)) for w, c in windows]
     bd = ba_run["inputs"]
@@ -1677,12 +1671,52 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
         lambda: loop_closure._verify_candidates(*vargs), lambda: loop_closure._verify_candidates_eager(*vargs),
         equal_fields)
     graphs.clear()
+    rows["op_by_op"] = op_by_op_rows(seq, stream_seq, feats, d)
     wall = time.perf_counter() - t_phase
     log(f"G: phase G {wall:.1f} s")
     return dict(rows, run_ba=ba_rows, run_ba_windows=len(windows), run_ba_max_diff=max(per_window),
                 pose_graph_trajectory=dict(graph_ms=pgt_ms, eager_ms=pgt_eager_ms, max_diff=pgt_diff),
                 refine_trajectory=dict(graph_ms=rt_ms, eager_ms=rt_eager_ms, max_diff=ref_diff,
                                        accepted=accepted_windows(info_bg)), wall_s=wall)
+
+
+def op_by_op_rows(seq, stream_seq, feats, d: dict) -> dict:
+    """The JAX package's other jitted device calls, which the port runs op
+    by op, weighed at the main path's shapes (eager_call_row): retrieval on
+    phase 5's keyframe features (global descriptors, the similarity
+    product, the match counts of the shortlisted pairs), ground truth from
+    the stream cell's 400 frames of detections, and the preprocessor's cast
+    and undistortion remap on the bench workload's 24 raw frames already on
+    the card (the remap with distorted_1440's lens)."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import loop_closure
+    from droplet_visual_odometry_tpu_torch.core import camera, se3
+    from droplet_visual_odometry_tpu_torch.groundtruth import derive_ground_truth, detections_from_arrays
+
+    lc, n_kf = d["lc"], d["n_kf"]
+    g = loop_closure.global_descriptors(feats.desc, feats.valid)
+    ia, ib = loop_closure._shortlist_pairs(feats, n_kf, lc.min_gap, lc.shortlist)
+    t, q = se3.to_translation_quaternion(torch.as_tensor(stream_seq.marker_poses, dtype=torch.float32))
+    n = len(stream_seq)
+    dets = detections_from_arrays(np.zeros((n, 1), np.int32), t.numpy()[:, None], q.numpy()[:, None],
+                                  np.nan_to_num(stream_seq.marker_corners)[:, None])
+    dets = type(dets)(*(a.cuda() for a in dets))
+    raw = torch.as_tensor(seq.frames, device="cuda")
+    lens = camera.make_camera(1173.854081, 1170.565083, 747.788206, 574.700374,
+                              dist=[-0.296079, 0.099771, 0.000222, 0.000109, 0.0], width=1440, height=1080)
+    cast = pipeline.make_preprocessor(seq, "cuda")
+    remap = pipeline.make_preprocessor(dataclasses.replace(seq, camera=lens), "cuda")
+    calls = {
+        f"global_descriptors ({n_kf} keyframes, K = {feats.desc.shape[1]})":
+            lambda: loop_closure.global_descriptors(feats.desc, feats.valid),
+        f"global_similarity ({n_kf} x {g.shape[1]})": lambda: loop_closure.global_similarity(g),
+        f"_retrieval_counts (P = {len(ia)} shortlisted pairs)":
+            lambda: loop_closure._retrieval_counts(feats.desc, feats.valid, ia, ib, lc.match_max_distance),
+        f"derive_ground_truth ({n} frames)": lambda: derive_ground_truth(dets, 0),
+        f"preprocessor, cast ({len(seq)} x 1440x1080 uint8 on the card)": lambda: cast(raw),
+        f"preprocessor, cast and undistortion remap ({len(seq)} x 1440x1080)": lambda: remap(raw),
+    }
+    return {label: eager_call_row(label, fn) for label, fn in calls.items()}
 
 
 class eager_programs:
@@ -2375,14 +2409,18 @@ def allreduce_ms(rows: int, device) -> float:
 def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     """M1, a world of one rank over NCCL on cuda:0 (the process group is up):
     shard_pair_vo on MESH_PAIRS pairs of the loop with VOConfig() and seeded
-    draws against pair_vo_batched and run_sequence on the same frames and
-    draws (bit for bit); the kernels at the path's shapes against their
-    twins; the edge-sharded optimize on phase 5's graph and
+    draws, captured with its all_gather (launches CAPTURE_TICKS x 4/4/1,
+    4/4/1 a replay), against pair_vo_batched and run_sequence on the same
+    frames and draws (bit for bit); the kernels at the path's shapes against
+    their twins; the edge-sharded optimize on phase 5's graph and
     run_ba_distributed on phase 6's windows against their one-device forms;
-    warm walls and the NCCL all_reduce latency. Also the references M2 is
-    held to: each rank's half batch through pair_vo_batched, and each BA
-    window's own sensitivity to the order of its landmark sums (run_ba with
-    the landmarks reversed)."""
+    each sharded program as a row of phase G's kind (program_row: capture,
+    replay, device span, graph memory, its eager twin; the pair VO and BA
+    bit for bit, optimize within MESH_PCG_TOL); warm walls of the captured
+    forms beside the eager ones, and the NCCL all_reduce latency. Also the
+    references M2 is held to: each rank's half batch through
+    pair_vo_batched, and each BA window's own sensitivity to the order of
+    its landmark sums (run_ba with the landmarks reversed)."""
     import torch.distributed as dist
 
     from droplet_visual_odometry_tpu_torch.backend import ba as ba_mod
@@ -2390,10 +2428,10 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     from droplet_visual_odometry_tpu_torch.estimation.vo import run_sequence
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
     from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, launch, sharding
-    from droplet_visual_odometry_tpu_torch.utils import threefry
+    from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
 
     mesh = launch.global_mesh()
-    if (dist.get_backend(), mesh.size, mesh.rank) != ("nccl", 1, 0):
+    if (dist.get_backend(), mesh.size, mesh.rank, mesh.backend) != ("nccl", 1, 0, "nccl"):
         raise AssertionError(f"M1 wants a one-rank NCCL world, got {dist.get_backend()} {mesh}")
     frames, corners, present, args = mesh_inputs(loop_seq)
     cfg = args[-1]
@@ -2403,11 +2441,15 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     rels = sharding.shard_pair_vo(mesh, *args, **draws)
     torch.cuda.synchronize()
     launches = read_launches()
-    log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}")
-    if launches["fast_score"] != cfg.n_levels or launches["orb_describe"] != cfg.n_levels:
-        raise AssertionError(f"expected {cfg.n_levels} FAST and describe launches (the 2B frames, one per level)")
-    if launches["hamming_match"] < 1:
-        raise AssertionError("the match kernel never launched on the mesh path")
+    progs = [p for p in graphs.programs() if p.name == "shard_pair_vo"]
+    log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}, "
+        f"captured {[p.captured_launches for p in progs]}")
+    per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1}
+    if launches != {k: CAPTURE_TICKS * v for k, v in per_replay.items()}:
+        raise AssertionError(f"expected {CAPTURE_TICKS} x {per_replay} launches (one capture of the 2B frames' "
+                             f"program), got {launches}")
+    if len(progs) != 1 or progs[0].captured_launches != per_replay or progs[0].mesh is not mesh:
+        raise AssertionError(f"shard_pair_vo was not captured once over the mesh with {per_replay} a replay")
     if rels.shape != (MESH_PAIRS, 4, 4) or not bool(torch.isfinite(rels).all()):
         raise AssertionError(f"shard_pair_vo rels {tuple(rels.shape)}, finite {bool(torch.isfinite(rels).all())}")
     plain = sharding.pair_vo_batched(*args, **draws)
@@ -2457,11 +2499,16 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
         ba_rows.append(dict(landmarks=int(window.points.shape[0]), pose_diff=pose_d, point_diff=point_d,
                             reversed_landmarks_pose_diff=float((flipped.poses - one.poses).abs().max()),
                             ms=wall_ms(lambda: distributed_ba.run_ba_distributed(mesh, window, wcfg), reps=3),
+                            eager_ms=wall_ms(lambda: distributed_ba.run_ba_distributed_eager(mesh, window, wcfg),
+                                             reps=3),
                             run_ba_ms=wall_ms(lambda: ba_mod.run_ba(window, wcfg), reps=3)))
     times = dict(
         shard_pair_vo_ms=wall_ms(lambda: sharding.shard_pair_vo(mesh, *args, **draws), reps=3),
+        shard_pair_vo_eager_ms=wall_ms(lambda: sharding.shard_pair_vo_eager(mesh, *args, **draws), reps=3),
         pair_vo_batched_ms=wall_ms(lambda: sharding.pair_vo_batched(*args, **draws), reps=3),
+        pair_vo_batched_eager_ms=wall_ms(lambda: sharding.pair_vo_batched_eager(*args, **draws), reps=3),
         optimize_mesh_ms=wall_ms(lambda: pose_graph.optimize(graph, pg_cfg, mesh=mesh), reps=3),
+        optimize_mesh_eager_ms=wall_ms(lambda: pose_graph.optimize_eager(graph, pg_cfg, mesh=mesh), reps=3),
         optimize_ms=wall_ms(lambda: pose_graph.optimize(graph, pg_cfg), reps=3),
         nccl_allreduce_ms=allreduce_ms(int(graph.poses.shape[0]), mesh.device),
     )
@@ -2474,7 +2521,43 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
                 graph=graph, pg_cfg=pg_cfg, draws=draws,
                 checks=dict(rels_equal_pair_vo_batched_and_run_sequence=True, rels_two_batches_vs_one=half_diff,
                             pcg_pose_diff=pcg_diff, ba=ba_rows),
-                times=times)
+                times=times, programs=mesh_program_rows(mesh, args, draws, graph, pg_cfg, windows))
+
+
+def mesh_program_rows(mesh, args, draws, graph, pg_cfg, windows) -> dict:
+    """M1's sharded programs, each captured afresh and held against its eager
+    twin as phase G holds the one-device programs (program_row): the pair
+    VO with and without the mesh, optimize over the mesh (one GN step a
+    replay) and run_ba_distributed on each (W, L) signature of phase 6's
+    windows."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, sharding
+    from droplet_visual_odometry_tpu_torch.utils import graphs
+
+    graphs.clear()
+    rows = {
+        "shard_pair_vo": program_row(
+            f"shard_pair_vo over the one-rank NCCL mesh ({MESH_PAIRS} pairs, its all_gather inside)",
+            lambda: sharding.shard_pair_vo(mesh, *args, **draws),
+            lambda: sharding.shard_pair_vo_eager(mesh, *args, **draws), equal_fields),
+        "pair_vo_batched": program_row(
+            f"pair_vo_batched, one device ({MESH_PAIRS} pairs)", lambda: sharding.pair_vo_batched(*args, **draws),
+            lambda: sharding.pair_vo_batched_eager(*args, **draws), equal_fields),
+        "optimize_mesh": program_row(
+            f"pose_graph.optimize over the mesh, one GN step a replay ({tuple(graph.poses.shape)[0]} nodes, "
+            f"{graph.edge_i.shape[0]} edges, a broadcast and {pg_cfg.cg_iters} all_reduces inside)",
+            lambda: pose_graph.optimize(graph, pg_cfg, mesh=mesh),
+            lambda: pose_graph.optimize_eager(graph, pg_cfg, mesh=mesh), within(MESH_PCG_TOL, "poses", "final_cost")),
+    }
+    sigs = {}
+    for w, c in windows:
+        sigs.setdefault((tuple(w.poses.shape), tuple(w.points.shape)), (w, c))
+    rows["run_ba_distributed"] = [dict(window=f"W = {ws[0]}, L = {ls[0]}", row=program_row(
+        f"run_ba_distributed over the mesh (W = {ws[0]}, L = {ls[0]}, {c.iters} LM steps, their psums inside)",
+        lambda: distributed_ba.run_ba_distributed(mesh, w, c),
+        lambda: distributed_ba.run_ba_distributed_eager(mesh, w, c), equal_fields))
+        for (ws, ls), (w, c) in sigs.items()]
+    return rows
 
 
 def mesh_rank(rank: int, tmp: str) -> None:
@@ -2516,7 +2599,7 @@ def mesh_rank(rank: int, tmp: str) -> None:
                                          vo_chain=np.asarray(res.trajectory.abs_poses), ate_rmse=res.ate.rmse)
         torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        launch.shutdown()
 
 
 def mesh_two_ranks(loop_seq, pg: dict, m1: dict) -> dict:
@@ -2636,6 +2719,7 @@ def phase_mesh(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     import torch.distributed as dist
 
     from droplet_visual_odometry_tpu_torch.parallel import launch
+    from droplet_visual_odometry_tpu_torch.utils import graphs
 
     t0 = time.perf_counter()
     with socket.socket() as s:
@@ -2646,13 +2730,19 @@ def phase_mesh(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     try:
         m1 = mesh_world_one(loop_seq, pg, ba, kernels)
     finally:
-        dist.destroy_process_group()
+        # The mesh's captured programs hold its communicator: drop them before the group goes.
+        graphs.clear(mesh=launch.global_mesh())
+        left = [p.name for p in graphs.programs() if p.mesh is not None]
+        launch.shutdown()
+    if left or dist.is_initialized():
+        raise AssertionError(f"M1 teardown left programs {left} over the mesh, group up {dist.is_initialized()}")
     m2 = mesh_two_ranks(loop_seq, pg, m1)
     log(f"M2 gloo all_reduce of ({int(m1['graph'].poses.shape[0])}, 6) f32 on CUDA tensors "
         f"{[r['gloo_allreduce_ms'] for r in m2['ranks']]} ms against NCCL's {m1['times']['nccl_allreduce_ms']:.4f} ms (M1)")
     m3 = mesh_scaling()
     log(json.dumps({"scaling": m3}))
-    return dict(launches=m1["launches"], m1=dict(checks=m1["checks"], times=m1["times"]), m2=m2,
+    return dict(launches=m1["launches"], m1=dict(checks=m1["checks"], times=m1["times"], programs=m1["programs"]),
+                m2=m2,
                 m3_cross_process_efficiency={k: v["cross_process_efficiency"] for k, v in m3["workloads"].items()},
                 wall_s=time.perf_counter() - t0)
 
@@ -2795,6 +2885,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
     parser.add_argument("--profile", action="store_true", help="also run the stage breakdown and torch.profiler")
     opts = parser.parse_args()
+    t0 = time.perf_counter()
     kind = phase_environment()
     seq = phase_data()
     log(json.dumps({"draws": phase_draws()}))
@@ -2837,6 +2928,7 @@ def main() -> int:
              launches_by_path={path: counts[name] for path, counts in by_path.items()}, library_ms=None)
         for name, r in kernels.items()
     ]
+    log(f"chip_smoke: all phases {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -222,7 +222,7 @@ def _gn_step(graph: PoseGraph, poses: torch.Tensor, cur_cost: torch.Tensor, cfg:
 
 def optimize_eager(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
     """Gauss-Newton op by op on the graph's device (the captured program's
-    twin, and the mesh form): cfg.iters steps, each accepted or rejected on
+    twin, over a mesh too): cfg.iters steps, each accepted or rejected on
     the device."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
@@ -248,21 +248,22 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=No
 
     mesh: an optional parallel.sharding.Mesh (every rank of it calls
     optimize on the same graph): the PCG's Hessian-vector products run
-    edge-sharded over it, one all_reduce of (M, 6) per CG step. The CG stop
-    test stays on the device, so every rank issues the same collectives.
-    The mesh form runs op by op: its collectives are not captured."""
+    edge-sharded over it, one all_reduce of (M, 6) per CG step, after one
+    broadcast of rank 0's rhs and preconditioner. The CG stop test stays on
+    the device, so every rank issues the same collectives. Over an NCCL
+    mesh the GN step is captured with those collectives inside (one program
+    per signature and mesh, the reference's optimize_jit with its psum); on
+    gloo or without a group it runs op by op (utils/graphs.py)."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
-    if mesh is not None:
-        return optimize_eager(graph, cfg, mesh)
 
     def step(poses, cur_cost, *tensors):
-        return _gn_step(PoseGraph(*tensors), poses, cur_cost, cfg)
+        return _gn_step(PoseGraph(*tensors), poses, cur_cost, cfg, mesh)
 
     initial = cost(graph)
     poses, cur_cost = graph.poses, initial
     for _ in range(cfg.iters):
-        poses, cur_cost = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg, graph.poses.device)
+        poses, cur_cost = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg, graph.poses.device, mesh)
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
 
 

@@ -132,8 +132,6 @@ def main(argv: list[str] | None = None) -> int:
         return run_spawn(args.spawn, args.total_devices, args.pairs_per_device, args.ba, args.height, args.width,
                          platform=args.platform)
 
-    import torch.distributed as dist
-
     from droplet_visual_odometry_tpu_torch.parallel import launch
 
     device = args.platform or "cuda"
@@ -152,8 +150,7 @@ def main(argv: list[str] | None = None) -> int:
                 for name, pts in reports.items():
                     print(launch.format_report(name, pts))
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        launch.shutdown()
     return 0
 
 

@@ -15,7 +15,8 @@ droplet_visual_odometry_tpu/parallel/distributed_ba.py.
     more: the sum is elementwise, so the numbers are the same, and each
     rendezvous is a fixed cost on gloo.
   * Accept and reject stay on the device (torch.where): no host read inside
-    the loop, so every rank issues the same collectives in the same order.
+    the loop, so every rank issues the same collectives in the same order,
+    and over NCCL the loop is one captured CUDA graph (run_ba_distributed).
 
 The per-shard math is backend/ba.py's (normal blocks, landmark elimination,
 camera solve, back-substitution), so single-device and distributed BA share
@@ -24,11 +25,14 @@ one implementation of the physics.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from droplet_visual_odometry_tpu_torch.backend import ba
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.parallel.sharding import Mesh, all_gather_rows, local_shard, psum
+from droplet_visual_odometry_tpu_torch.utils import graphs
 
 
 def _pad_landmarks(window: ba.BAWindow, n_devices: int) -> ba.BAWindow:
@@ -48,16 +52,20 @@ def _pad_landmarks(window: ba.BAWindow, n_devices: int) -> ba.BAWindow:
     )
 
 
-def run_ba_distributed(mesh: Mesh, window: ba.BAWindow, cfg: ba.BAConfig = ba.BAConfig()) -> ba.BAResult:
-    """LM windowed BA with the landmarks sharded over the mesh. Takes the
-    full window on every rank; returns replicated poses, costs and RMS, and
-    the padded (L', 3) points gathered from every rank."""
+def _shard_window(mesh: Mesh, window: ba.BAWindow) -> tuple:
+    """The program's inputs: the window padded to a multiple of the mesh
+    size in L, this rank's block of landmarks and observation columns, all
+    on its device (outside the program)."""
     window = _pad_landmarks(window, mesh.size)
     dev = mesh.device
-    poses, K = window.poses.to(dev), window.K.to(dev)
-    points = local_shard(mesh, window.points, 0)
-    obs_uv = local_shard(mesh, window.obs_uv, 1)
-    obs_mask = local_shard(mesh, window.obs_mask, 1)
+    return (window.poses.to(dev), local_shard(mesh, window.points, 0), local_shard(mesh, window.obs_uv, 1),
+            local_shard(mesh, window.obs_mask, 1), window.K.to(dev))
+
+
+def _ba_body(poses, points, obs_uv, obs_mask, K, *, mesh: Mesh, cfg: ba.BAConfig) -> ba.BAResult:
+    """The LM loop over this rank's landmark shard with the mesh's psums,
+    the final RMS and the gather of every rank's points. No host read and
+    no host data inside."""
     local = ba.BAWindow(poses, points, obs_uv, obs_mask, K)
     huber, min_depth = cfg.huber_px, cfg.min_depth
 
@@ -74,7 +82,7 @@ def run_ba_distributed(mesh: Mesh, window: ba.BAWindow, cfg: ba.BAConfig = ba.BA
 
     cost0 = total_cost(poses, points)
     cost = cost0
-    lam = torch.full((), cfg.init_lambda, dtype=poses.dtype, device=dev)
+    lam = torch.full((), cfg.init_lambda, dtype=poses.dtype, device=poses.device)
     Wn = poses.shape[0]
     sizes = [Wn * 36, Wn * 6, Wn * Wn * 36, Wn * 6]
     for _ in range(cfg.iters):
@@ -105,3 +113,23 @@ def run_ba_distributed(mesh: Mesh, window: ba.BAWindow, cfg: ba.BAConfig = ba.BA
     rms = torch.sqrt(sq / torch.clamp(n, min=1.0))
     return ba.BAResult(poses=poses, points=all_gather_rows(mesh, points), initial_cost=cost0, final_cost=cost,
                        rms_px=rms)
+
+
+def run_ba_distributed(mesh: Mesh, window: ba.BAWindow, cfg: ba.BAConfig = ba.BAConfig()) -> ba.BAResult:
+    """LM windowed BA with the landmarks sharded over the mesh. Takes the
+    full window on every rank; returns replicated poses, costs and RMS, and
+    the padded (L', 3) points gathered from every rank.
+
+    Over an NCCL mesh on the card the whole LM loop, the final RMS and the
+    gather replay as one captured CUDA graph per (W, L'/D, BAConfig, mesh),
+    their collectives inside (the reference's shard_map, no host round trip
+    per iteration); the padding and the shards are staged outside it. On
+    gloo or without a group it runs run_ba_distributed_eager
+    (utils/graphs.py)."""
+    body = functools.partial(_ba_body, mesh=mesh, cfg=cfg)
+    return graphs.run("run_ba_distributed", body, _shard_window(mesh, window), cfg, mesh.device, mesh)
+
+
+def run_ba_distributed_eager(mesh: Mesh, window: ba.BAWindow, cfg: ba.BAConfig = ba.BAConfig()) -> ba.BAResult:
+    """run_ba_distributed op by op (the captured program's twin)."""
+    return _ba_body(*_shard_window(mesh, window), mesh=mesh, cfg=cfg)

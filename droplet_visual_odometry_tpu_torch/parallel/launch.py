@@ -7,6 +7,8 @@ One process (rank) per device (parallel/__init__.py):
     torchrun's variables (MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK,
     LOCAL_RANK): NCCL on cuda:{LOCAL_RANK} for "cuda", gloo for "cpu";
     idempotent, and a no-op for a single process without a coordinator.
+  * `shutdown()` — its end: the captured programs that hold collectives are
+    dropped, then the process group is destroyed.
   * `global_mesh()` — the mesh over every rank of the world.
   * `measure_scaling_pair_vo()`, `measure_scaling_ba()` — weak-scaling
     throughput of data-parallel pair VO and distributed Schur BA over
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from droplet_visual_odometry_tpu_torch.utils import graphs
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 
@@ -70,6 +73,18 @@ def initialize(
     init_method = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes, rank=process_id)
     return True
+
+
+def shutdown() -> None:
+    """Destroy this process's torch.distributed group (and its sub-groups),
+    first dropping every captured program whose graph holds a collective on
+    one of them (utils/graphs.clear): a replay or an eviction after the
+    group is gone would touch a dead communicator. A no-op without a group."""
+    if not dist.is_initialized():
+        return
+    for mesh in {p.mesh for p in graphs.programs() if p.mesh is not None}:
+        graphs.clear(mesh=mesh)
+    dist.destroy_process_group()
 
 
 def global_mesh(axis_name: str = "frames", device="cuda"):

@@ -6,7 +6,7 @@ pose-graph Gauss-Newton, windowed BA, loop-closure verification) as one
 compiled XLA program: no host launch or read inside it. Here each becomes
 one CUDA graph per static signature:
 
-    out = graphs.run(name, body, inputs, static, device)
+    out = graphs.run(name, body, inputs, static, device, mesh=None)
 
 `body(*inputs)` is the program's op-by-op form: it takes tensors (or None)
 and returns a tensor or a (named) tuple of tensors, and it must neither
@@ -29,8 +29,9 @@ replay overwrites. On any other device `body` runs eagerly: graphs exist
 only on CUDA devices, so the device decides; there is no switch and no
 eager fallback on the card, and a capture that fails raises.
 
-What the cache holds: per device, the CAPACITY most recently used programs,
-each its graph, its pool (the body's peak working set: about 11 GB for a
+What the cache holds: per device, the CAPACITY most recently used programs
+(and as many per process group for the programs over a mesh, below), each
+its graph, its pool (the body's peak working set: about 11 GB for a
 257-frame stream chunk at 1440x1080) and its static buffers. An evicted
 program's graph is reset and its pool returned to the device.
 
@@ -38,6 +39,33 @@ Launch counters: the kernels' counters (ops/cuda_*.LAUNCHES) tick where a
 wrapper's Python runs, i.e. in the warm-up and in the capture, never on a
 replay. Each program records `captured_launches`, the launches of one
 replay.
+
+Programs over a mesh (`run(..., mesh=m)`, m a parallel.sharding.Mesh): the
+JAX package compiles its sharded programs (pjit pair VO, the shard_map BA,
+the edge-sharded PCG) with their collectives inside. Here the collectives
+are torch.distributed calls on the mesh's group inside `body`, and the
+group's backend decides, as the device does: a group on NCCL is captured
+with its collectives in the graph (NCCL enqueues them on the card like any
+kernel); on gloo, which runs a collective on the host, and for a mesh
+without a group, `body` runs op by op. That is the rule, not a fallback: a
+failed NCCL capture raises. The key then also holds the mesh's identity
+(group, size, rank, backend), so a sharded program never shares a key with
+its one-device form, and a new process group (even of the same size)
+captures anew. A captured collective holds its communicator: drop a mesh's
+programs with `clear(mesh=m)` before its group is destroyed
+(parallel.launch.shutdown does so for every group), or a later replay or
+an eviction would touch a dead communicator.
+
+Lockstep: every rank of a mesh must capture at the same call, since a
+call that captures runs the body's collectives twice (the warm-up, then
+the replay) and a call that replays runs them once. The cache keeps that
+by itself: a capture happens at a key's first call and an eviction at the
+call that overflows CAPACITY, both fixed by the sequence of calls, and the
+programs over a mesh are kept in an LRU of their own per (device, process
+group). So their captures and evictions follow only the calls over that
+group, which every member makes in the same order (as its collectives
+require anyway), and not a rank's other calls: one-device programs, or
+sub-meshes it is not part of.
 """
 
 from __future__ import annotations
@@ -72,14 +100,19 @@ class Program:
     captured_launches: dict[str, int]  # kernel launches of one replay
     capture_s: float  # host wall of warm-up + capture
     memory_bytes: int  # the graph's pool (memory_reserved growth over the capture) + static input bytes
+    mesh: Any = None  # the parallel.sharding.Mesh whose collectives the graph holds (None: one device)
 
 
-_cache: dict[torch.device, collections.OrderedDict] = {}
+_cache: dict[tuple, collections.OrderedDict] = {}  # (device, process group or None) -> LRU of programs
 
 
-def _key(name: str, static: Hashable, inputs: Sequence, device: torch.device) -> tuple:
+def _mesh_id(mesh) -> tuple | None:
+    return None if mesh is None else (mesh.group, mesh.size, mesh.rank, mesh.backend)
+
+
+def _key(name: str, static: Hashable, inputs: Sequence, device: torch.device, mesh=None) -> tuple:
     sig = tuple(None if x is None else (tuple(x.shape), x.dtype) for x in inputs)
-    return (name, static, sig, device)
+    return (name, static, sig, device, _mesh_id(mesh))
 
 
 def _stage(buffers: tuple, inputs: Sequence) -> None:
@@ -88,7 +121,7 @@ def _stage(buffers: tuple, inputs: Sequence) -> None:
             buf.copy_(x, non_blocking=True)
 
 
-def _capture(name: str, body: Callable, inputs: Sequence, device: torch.device) -> Program:
+def _capture(name: str, body: Callable, inputs: Sequence, device: torch.device, mesh=None) -> Program:
     t0 = time.perf_counter()
     buffers = tuple(None if x is None else torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs)
     _stage(buffers, inputs)
@@ -112,28 +145,31 @@ def _capture(name: str, body: Callable, inputs: Sequence, device: torch.device) 
     return Program(
         name=name, graph=graph, inputs=buffers, outputs=outputs, captured_launches=captured,
         capture_s=time.perf_counter() - t0,
-        memory_bytes=torch.cuda.memory_reserved(device) - reserved + in_bytes,
+        memory_bytes=torch.cuda.memory_reserved(device) - reserved + in_bytes, mesh=mesh,
     )
 
 
-def _evict(programs: collections.OrderedDict) -> None:
-    _, prog = programs.popitem(last=False)
+def _drop(prog: Program) -> None:
     prog.graph.reset()
     prog.inputs = prog.outputs = None
+
+
+def _evict(programs: collections.OrderedDict) -> None:
+    _drop(programs.popitem(last=False)[1])
     torch.cuda.empty_cache()
 
 
-def program(name: str, body: Callable, inputs: Sequence, static: Hashable, device) -> Program:
+def program(name: str, body: Callable, inputs: Sequence, static: Hashable, device, mesh=None) -> Program:
     """The cached program for this call's signature, captured now if absent
     (CUDA devices only)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    programs = _cache.setdefault(device, collections.OrderedDict())
-    key = _key(name, static, inputs, device)
+    programs = _cache.setdefault((device, None if mesh is None else mesh.group), collections.OrderedDict())
+    key = _key(name, static, inputs, device, mesh)
     prog = programs.get(key)
     if prog is None:
-        prog = _capture(name, body, inputs, device)
+        prog = _capture(name, body, inputs, device, mesh)
         programs[key] = prog
         while len(programs) > CAPACITY:
             _evict(programs)
@@ -141,29 +177,37 @@ def program(name: str, body: Callable, inputs: Sequence, static: Hashable, devic
     return prog
 
 
-def run(name: str, body: Callable, inputs: Sequence, static: Hashable, device) -> Any:
-    """body(*inputs) on `device`: eagerly off CUDA, else one replay of the
-    program captured for this signature (see the module docstring)."""
+def run(name: str, body: Callable, inputs: Sequence, static: Hashable, device, mesh=None) -> Any:
+    """body(*inputs) on `device`, over `mesh` if given (its collectives
+    inside `body`): on a CUDA device, with no mesh or a mesh on NCCL, one
+    replay of the program captured for this signature; else eagerly (see
+    the module docstring)."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or (mesh is not None and mesh.backend != "nccl"):
         return body(*(None if x is None else x.to(device) for x in inputs))
-    prog = program(name, body, inputs, static, device)
+    prog = program(name, body, inputs, static, device, mesh)
     _stage(prog.inputs, inputs)
     prog.graph.replay()
     return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, prog.outputs)
 
 
+def _caches(device, mesh) -> list[collections.OrderedDict]:
+    return [progs for (d, group), progs in _cache.items()
+            if (device is None or d == torch.device(device)) and (mesh is None or group is mesh.group)]
+
+
 def programs(device=None) -> list[Program]:
-    """The cached programs, least recently used first (all devices unless
-    one is given)."""
-    devs = list(_cache) if device is None else [torch.device(device)]
-    return [p for d in devs for p in _cache.get(d, {}).values()]
+    """The cached programs (all devices unless one is given), least
+    recently used first within each device's and each group's LRU."""
+    return [p for progs in _caches(device, None) for p in progs.values()]
 
 
-def clear(device=None) -> None:
-    """Drop every cached program (of one device, or all), freeing their pools:
-    the next call of each signature captures again."""
-    for d in list(_cache) if device is None else [torch.device(device)]:
-        programs_d = _cache.get(d)
-        while programs_d:
-            _evict(programs_d)
+def clear(device=None, mesh=None) -> None:
+    """Drop cached programs (of one device, or all), freeing their pools:
+    every program, or with `mesh` only those whose graphs hold collectives
+    on the mesh's process group. The next call of each signature captures
+    again."""
+    for progs in _caches(device, mesh):
+        while progs:
+            _drop(progs.popitem(last=False)[1])
+    torch.cuda.empty_cache()

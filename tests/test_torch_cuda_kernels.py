@@ -29,6 +29,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _count_from_zero():
+    """Set the kernels' launch counters to 0 and drop every captured program
+    (utils/graphs.py), so the run that follows captures each program it
+    runs: a captured program's kernels tick twice (its warm-up and its
+    capture, none on a replay), a kernel run op by op once a launch."""
+    from droplet_visual_odometry_tpu_torch.utils import graphs
+
+    graphs.clear()
+    for mod in (cuda_fast, cuda_describe, cuda_match):
+        mod.LAUNCHES = 0
+
+
 def _images(n, h, w, seed, integer=True):
     rng = np.random.default_rng(seed)
     img = rng.uniform(0, 60, size=(n, h, w)).astype(np.float32)
@@ -249,7 +261,8 @@ def test_match_reductions_one_kernel_no_memset(cuda_device):
 
 def test_slice_on_cuda_launches_every_kernel(cuda_device):
     """run_experiment on the card goes through all three kernels (one FAST
-    and one describe launch per pyramid level, one batched match) and agrees
+    and one describe launch per pyramid level, one batched match, in
+    run_sequence's program: captured once, so each ticks twice) and agrees
     with the port's CPU run: level 0 is exact, the bf16 resize sums in
     another order on the card, so match counts may move by a few in total
     (2% bound). The ATE is held to 3 cm: the port's CPU runs of this
@@ -257,10 +270,9 @@ def test_slice_on_cuda_launches_every_kernel(cuda_device):
     random samples."""
     seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=8, width=640, height=480, n_landmarks=350))
     cpu = pipeline.run_experiment(seq, VOConfig(), device="cpu")
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     gpu = pipeline.run_experiment(seq, VOConfig(), device=cuda_device)
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (8, 8, 2)  # run_sequence captured
     assert np.isfinite(gpu.vo_abs).all() and gpu.trajectory.ok.all()
     dev = np.abs(gpu.trajectory.n_matches - cpu.trajectory.n_matches).sum()
     assert dev <= 0.02 * cpu.trajectory.n_matches.sum()
@@ -336,8 +348,9 @@ def test_match_at_loop_closure_shapes(cuda_device, p):
 
 def test_pose_graph_trajectory_on_cuda(cuda_device):
     """One pose_graph_trajectory call on the card launches FAST and describe
-    once per pyramid level on the keyframe stack and the match twice
-    (retrieval counts, then verification), and with the same verification
+    once per pyramid level on the keyframe stack and the match for the
+    retrieval counts, and captures verification (its match ticks twice:
+    warm-up and capture), and with the same verification
     draws on both devices finds the CPU run's keyframes, bridge and loop
     pairs. The poses are held by their ATE, not element by element: on pairs
     whose translation direction is ill-conditioned (restarts far apart) the
@@ -369,11 +382,11 @@ def test_pose_graph_trajectory_on_cuda(cuda_device):
             seq.marker_present, seq.camera.K, seq.real_marker_length, vo, cfg)
     frames = torch.from_numpy(seq.frames).float()
     cpu, cpu_info = refine.pose_graph_trajectory(frames, *args, pair_scale_ok=base.trajectory.scale_ok, draws=draws)
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     gpu, gpu_info = refine.pose_graph_trajectory(frames.to(cuda_device), *args, pair_scale_ok=base.trajectory.scale_ok,
                                                  draws=draws)
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 2)
+    # The keyframe stack and retrieval op by op, verification captured.
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 3)
     for key in ("n_keyframes", "n_bridge_pairs", "loop_pairs"):
         assert gpu_info[key] == cpu_info[key], key
     assert gpu_info["n_loop_edges"] >= 1 and gpu_info["pg_final_cost"] < gpu_info["pg_initial_cost"]
@@ -435,7 +448,8 @@ def _loop_sequence():
 def test_streamed_run_on_cuda_matches_in_memory(cuda_device, tmp_path):
     """A streamed run on the card (chunks of 8 pairs through the page-locked
     buffer, the last chunk padded) against the in-memory run of the same
-    frames: FAST and describe 4 launches per chunk, match counts within 2%
+    frames: one program for every chunk (FAST and describe 4 launches a
+    replay, ticking at its warm-up and capture only), match counts within 2%
     in total (the bf16 resize matmuls may sum in another order at another
     batch size), and a run interrupted after its first chunk and resumed
     equal to the uninterrupted streamed run bit for bit."""
@@ -444,10 +458,10 @@ def test_streamed_run_on_cuda_matches_in_memory(cuda_device, tmp_path):
 
     seq = _loop_sequence()
     vo = VOConfig(scale_mode="hold", ransac=RansacConfig(n_hypotheses=128, lo_hypotheses=32))
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     streamed = pipeline.run_experiment(seq, vo, None, 0, stream=True, checkpoint_chunk=8)
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (16, 16, 4)
+    # Every chunk (the padded last one too) replays one captured program.
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (8, 8, 2)
     mem = pipeline.run_experiment(seq, vo, None, 0, stream=False)
     a, b = streamed.trajectory.n_matches, mem.trajectory.n_matches
     print(f"n_matches equal on {int((a == b).sum())}/{len(a)} pairs")
@@ -488,8 +502,7 @@ def test_refine_trajectory_on_cuda(cuda_device):
     kw = dict(marker_corners=pipeline.effective_marker_corners(seq, K), real_marker_length=seq.real_marker_length)
     frames = torch.from_numpy(seq.frames).float()
     cpu, cpu_info = refine.refine_trajectory(frames, *args, **kw)
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     gpu, gpu_info = refine.refine_trajectory(frames.to(cuda_device), *args, **kw)
     assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
     accepted = lambda info: [r["accepted"] for r in info.get("window_corr", [])]
@@ -665,12 +678,11 @@ def test_cli_convert_and_run_on_cuda_equal_in_process(cuda_device, tmp_path):
     assert np.array_equal(conv.frames, seq.frames) and np.array_equal(conv.marker_present, seq.marker_present)
     np.testing.assert_allclose(conv.marker_poses, seq.marker_poses, rtol=0, atol=1e-6)
 
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     out = str(tmp_path / "out")
     summary = _cli_json(run_experiment.main, ["--sequence", npz, "--out-dir", out, "--backend", "none",
                                               "--ransac-hypotheses", "384", "--seed", "0"])
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (8, 8, 2)
     ref = pipeline.run_experiment(conv, VOConfig(scale_mode="hold"), None, 0, backend="none")
     assert summary["config"]["ransac"]["n_hypotheses"] == 384
     assert summary["median_matches"] == int(np.median(ref.trajectory.n_matches))
@@ -685,18 +697,18 @@ def test_run_experiment_cli_runs_on_cuda_by_default(cuda_device, tmp_path):
     card, through all three kernels, with a finite summary."""
     from droplet_visual_odometry_tpu_torch.cli import run_experiment
 
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     summary = _cli_json(run_experiment.main, ["--synthetic", "--n-frames", "8", "--backend", "none",
                                               "--out-dir", str(tmp_path / "out")])
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (8, 8, 2)
     assert summary["n_frames"] == 8 and np.isfinite(summary["ate_rmse_m"]) and summary["ok_fraction"] == 1.0
 
 
 @pytest.fixture
 def nccl_world_one(cuda_device, tmp_path):
     """A world of one rank over NCCL on the card (launch.initialize with a
-    file store), torn down after the test."""
+    file store), torn down after the test by launch.shutdown (the mesh's
+    captured programs dropped first)."""
     import torch.distributed as dist
 
     from droplet_visual_odometry_tpu_torch.parallel import launch
@@ -706,14 +718,15 @@ def nccl_world_one(cuda_device, tmp_path):
         assert dist.get_backend() == "nccl"
         yield launch.global_mesh()
     finally:
-        dist.destroy_process_group()
+        launch.shutdown()
 
 
 def test_shard_pair_vo_on_nccl_world_one_equals_pair_vo_batched(nccl_world_one):
-    """shard_pair_vo over a one-rank NCCL mesh (its all_gather really runs)
-    equals pair_vo_batched on the same frames and draws bit for bit, and
-    describes the 2B frames in one batch: FAST and describe once per
-    pyramid level, the match once."""
+    """shard_pair_vo over a one-rank NCCL mesh (its all_gather really runs,
+    inside the captured graph) equals pair_vo_batched on the same frames
+    and draws bit for bit, and describes the 2B frames in one batch: FAST
+    and describe once per pyramid level, the match once, in a program
+    captured once (its warm-up and capture tick each kernel: 8/8/2)."""
     from droplet_visual_odometry_tpu_torch.parallel import sharding
 
     seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=9, width=256, height=192, n_landmarks=300))
@@ -724,11 +737,10 @@ def test_shard_pair_vo_on_nccl_world_one_equals_pair_vo_batched(nccl_world_one):
             seq.camera.K, seq.real_marker_length, cfg)
     mesh = nccl_world_one
     assert (mesh.size, mesh.rank, mesh.device) == (1, 0, torch.device("cuda", torch.cuda.current_device()))
-    for mod in (cuda_fast, cuda_describe, cuda_match):
-        mod.LAUNCHES = 0
+    _count_from_zero()
     rels = sharding.shard_pair_vo(mesh, *args, seed=5)
     torch.cuda.synchronize()
-    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 1)
+    assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (8, 8, 2)
     assert rels.is_cuda and rels.shape == (8, 4, 4) and bool(torch.isfinite(rels).all())
     assert torch.equal(rels, sharding.pair_vo_batched(*args, seed=5))
 
@@ -775,3 +787,52 @@ def test_edge_sharded_optimize_on_nccl_world_one(nccl_world_one):
     assert float(dist_res.final_cost) < 0.1 * float(dist_res.initial_cost)
     np.testing.assert_allclose(dist_res.poses.cpu().numpy(), single.poses.cpu().numpy(), atol=2e-3)
     np.testing.assert_allclose(dist_res.points.cpu().numpy(), single.points.cpu().numpy(), atol=2e-2)
+
+
+def test_sharded_programs_capture_their_collectives_on_nccl_world_one(nccl_world_one):
+    """Over a one-rank NCCL mesh each sharded program (shard_pair_vo with its
+    all_gather, optimize's GN step with its broadcast and all_reduces,
+    run_ba_distributed with its psums and gather) is captured once, over
+    the mesh, and its replays equal its eager twin: bit for bit for the
+    pair VO and BA, within 1e-4 for optimize (index_add_ sums in no fixed
+    order on the card, ROADMAP C.2). One pair-VO replay launches 4/4/1,
+    the other two none of the kernels. graphs.clear(mesh=) then leaves no
+    program of the mesh behind (before the fixture destroys the group)."""
+    from droplet_visual_odometry_tpu_torch.backend import ba, pose_graph
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, sharding
+    from droplet_visual_odometry_tpu_torch.utils import graphs
+
+    mesh = nccl_world_one
+    graphs.clear()
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=9, width=256, height=192, n_landmarks=300))
+    frames = torch.from_numpy(seq.frames).float()
+    corners = np.nan_to_num(seq.marker_corners)
+    args = (frames[:-1], frames[1:], corners[:-1], corners[1:], seq.marker_present[:-1] & seq.marker_present[1:],
+            seq.camera.K, seq.real_marker_length, VOConfig(n_keypoints=256))
+    graph = _random_pose_graph(mesh.device)
+    window = ba.BAWindow(*(t.to(mesh.device) for t in _ba_window(seed=4, L=121)))
+    calls = {
+        "shard_pair_vo": (lambda: sharding.shard_pair_vo(mesh, *args, seed=5),
+                          lambda: sharding.shard_pair_vo_eager(mesh, *args, seed=5)),
+        "optimize_step": (lambda: pose_graph.optimize(graph, mesh=mesh),
+                          lambda: pose_graph.optimize_eager(graph, mesh=mesh)),
+        "run_ba_distributed": (lambda: distributed_ba.run_ba_distributed(mesh, window),
+                               lambda: distributed_ba.run_ba_distributed_eager(mesh, window)),
+    }
+    for name, (graphed, eager) in calls.items():
+        first, again, ref = graphed(), graphed(), eager()
+        torch.cuda.synchronize()
+        progs = [p for p in graphs.programs() if p.name == name]
+        assert len(progs) == 1 and progs[0].mesh is mesh, name
+        if name == "shard_pair_vo":
+            assert torch.equal(first, again) and torch.equal(again, ref)
+        elif name == "optimize_step":
+            np.testing.assert_allclose(again.poses.cpu().numpy(), ref.poses.cpu().numpy(), rtol=0, atol=1e-4)
+            assert float(again.final_cost) < float(again.initial_cost)
+        else:
+            assert all(torch.equal(x, y) and torch.equal(z, y) for x, y, z in zip(again, ref, first))
+    launches = {p.name: p.captured_launches for p in graphs.programs() if p.mesh is mesh}
+    assert launches["shard_pair_vo"] == {"fast_score": 4, "orb_describe": 4, "hamming_match": 1}
+    assert set(launches["optimize_step"].values()) == set(launches["run_ba_distributed"].values()) == {0}
+    graphs.clear(mesh=mesh)
+    assert not [p for p in graphs.programs() if p.mesh is not None]

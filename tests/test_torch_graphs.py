@@ -192,9 +192,9 @@ def keys_of(calls):
     keys = []
     real = graphs.run
 
-    def spy(name, body, inputs, static, device):
-        keys[-1].append(graphs._key(name, static, inputs, torch.device(device)))
-        return real(name, body, inputs, static, device)
+    def spy(name, body, inputs, static, device, mesh=None):
+        keys[-1].append(graphs._key(name, static, inputs, torch.device(device), mesh))
+        return real(name, body, inputs, static, device, mesh)
 
     with mock.patch.object(graphs, "run", spy):
         for call in calls:
@@ -279,7 +279,7 @@ class _StubGraph:
 def test_cache_captures_once_per_key_and_evicts_least_recent():
     captured = []
 
-    def fake_capture(name, body, inputs, device):
+    def fake_capture(name, body, inputs, device, mesh=None):
         captured.append(name)
         return graphs.Program(name=name, graph=_StubGraph(), inputs=(), outputs=None, captured_launches={},
                               capture_s=0.0, memory_bytes=0)
@@ -343,9 +343,9 @@ def test_checkpointed_chunks_share_one_signature(seq):
     calls = []
     real = graphs.run
 
-    def spy(name, body, inputs, static, device):
-        calls.append(graphs._key(name, static, inputs, torch.device(device)))
-        return real(name, body, inputs, static, device)
+    def spy(name, body, inputs, static, device, mesh=None):
+        calls.append(graphs._key(name, static, inputs, torch.device(device), mesh))
+        return real(name, body, inputs, static, device, mesh)
 
     with mock.patch.object(graphs, "run", spy):
         checkpoint.run_sequence_checkpointed(

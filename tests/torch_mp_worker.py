@@ -118,8 +118,89 @@ def case_scaling(inp: dict) -> dict:
             "scaling_report": launch.format_report("pair_vo", vo), "is_coordinator": launch.is_coordinator()}
 
 
+def case_graphs_mesh(inp: dict) -> dict:
+    """The three sharded programs over this rank's gloo mesh: each body run
+    under test_torch_graphs.HostGuard (after a warm-up), each entry point
+    and its eager twin, the cache keys of plain, mesh and new-group calls,
+    and no program cached (gloo runs op by op)."""
+    import dataclasses
+    import functools
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from test_torch_graphs import guarded
+
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.parallel import distributed_ba, sharding
+    from droplet_visual_odometry_tpu_torch.utils import graphs
+
+    mesh = sharding.make_mesh(device="cpu")
+    args = inp["gm_pair_vo_args"]
+    graph, pg_cfg = inp["gm_graph"]
+    window, ba_cfg = inp["gm_window"]
+    L, cfg = float(args[6]), args[7]
+    out = {"gm_backend": mesh.backend}
+
+    staged = sharding._shard_pair_vo_inputs(mesh, *args[:6], cfg, 4, None, None, None)
+    body = functools.partial(sharding._pair_vo_body, cfg=cfg, real_marker_length=L, mesh=mesh)
+    out["gm_pair_vo_guarded"] = guarded(body, *staged)
+    out["gm_shard_pair_vo"] = sharding.shard_pair_vo(mesh, *args, seed=4)
+    out["gm_shard_pair_vo_eager"] = sharding.shard_pair_vo_eager(mesh, *args, seed=4)
+
+    def gn_step(poses, cur_cost, *tensors):
+        return pose_graph._gn_step(pose_graph.PoseGraph(*tensors), poses, cur_cost, pg_cfg, mesh)
+
+    out["gm_gn_step_guarded"] = guarded(gn_step, graph.poses, pose_graph.cost(graph), *graph)
+    out["gm_optimize"] = pose_graph.optimize(graph, pg_cfg, mesh)._asdict()
+    out["gm_optimize_eager"] = pose_graph.optimize_eager(graph, pg_cfg, mesh)._asdict()
+
+    body = functools.partial(distributed_ba._ba_body, mesh=mesh, cfg=ba_cfg)
+    out["gm_ba_guarded"] = guarded(body, *distributed_ba._shard_window(mesh, window))._asdict()
+    out["gm_ba"] = distributed_ba.run_ba_distributed(mesh, window, ba_cfg)._asdict()
+    out["gm_ba_eager"] = distributed_ba.run_ba_distributed_eager(mesh, window, ba_cfg)._asdict()
+
+    # Keys: each call's key, recorded through graphs.run.
+    keys, real = [], graphs.run
+
+    def spy(name, body, inputs, static, device, mesh=None):
+        keys[-1].add(graphs._key(name, static, inputs, torch.device(device), mesh))
+        return real(name, body, inputs, static, device, mesh)
+
+    other = dataclasses.replace(mesh, group=dist.new_group([0, 1]))
+    half = slice(mesh.rank * (len(args[0]) // 2), (mesh.rank + 1) * (len(args[0]) // 2))
+    calls = {
+        "optimize": lambda: pose_graph.optimize(graph, pg_cfg),
+        "optimize_mesh": lambda: pose_graph.optimize(graph, pg_cfg, mesh),
+        "optimize_mesh_again": lambda: pose_graph.optimize(graph, pg_cfg, mesh),
+        "optimize_new_group": lambda: pose_graph.optimize(graph, pg_cfg, other),
+        "pair_vo_batched": lambda: sharding.pair_vo_batched(*(a[half] for a in args[:5]), *args[5:], device="cpu"),
+        "shard_pair_vo": lambda: sharding.shard_pair_vo(mesh, *args),
+        "shard_pair_vo_new_group": lambda: sharding.shard_pair_vo(other, *args),
+        "ba_mesh": lambda: distributed_ba.run_ba_distributed(mesh, window, ba_cfg),
+        "ba_new_group": lambda: distributed_ba.run_ba_distributed(other, window, ba_cfg),
+    }
+    with mock.patch.object(graphs, "run", spy):
+        for name, call in calls.items():
+            keys.append(set())
+            call()
+            out.setdefault("gm_keys_per_call", {})[name] = len(keys[-1])
+    k = dict(zip(calls, keys))
+    out["gm_key_checks"] = {
+        "mesh_key_holds_the_group": all(key[-1] == (mesh.group, 2, mesh.rank, "gloo") for key in k["optimize_mesh"]),
+        "plain_key_has_no_mesh": all(key[-1] is None for key in k["optimize"] | k["pair_vo_batched"]),
+        "plain_and_mesh_differ": not (k["optimize"] & k["optimize_mesh"])
+        and not (k["pair_vo_batched"] & k["shard_pair_vo"]),
+        "same_mesh_same_key": k["optimize_mesh"] == k["optimize_mesh_again"],
+        "new_group_new_key": not (k["optimize_mesh"] & k["optimize_new_group"])
+        and not (k["shard_pair_vo"] & k["shard_pair_vo_new_group"]) and not (k["ba_mesh"] & k["ba_new_group"]),
+    }
+    out["gm_programs_cached"] = len(graphs.programs())
+    return out
+
+
 CASES = {"pair_vo": case_pair_vo, "pcg": case_pcg, "pg_trajectory": case_pg_trajectory, "ba": case_ba,
-         "scaling": case_scaling}
+         "scaling": case_scaling, "graphs_mesh": case_graphs_mesh}
 
 
 def main() -> int:
@@ -140,7 +221,7 @@ def main() -> int:
             out.update(CASES[case](inputs))
         torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        launch.shutdown()
     return 0
 
 
