@@ -825,7 +825,8 @@ def pcg_host_stop(matvec, b, Minv, iters: int, tol: float) -> torch.Tensor:
     """The reference's PCG loop (pose_graph.py:143-172) with its stop test
     read on the host every step: the other form of backend/pose_graph._pcg,
     which issues all iters steps and sets the step length to 0 on the
-    device once the test fails. Counts its steps in PCG_STEPS."""
+    device once the test fails. Counts its steps in PCG_STEPS and returns
+    them beside x, as `_pcg` returns its live steps."""
     apply_minv = lambda r: torch.einsum("mab,mb->ma", Minv, r)
     x, r = torch.zeros_like(b), b
     z = apply_minv(r)
@@ -844,7 +845,7 @@ def pcg_host_stop(matvec, b, Minv, iters: int, tol: float) -> torch.Tensor:
         z = z_new
         k += 1
     PCG_STEPS.append(k)
-    return x
+    return x, torch.tensor(k, dtype=torch.int32, device=b.device)
 
 
 PCG_STEPS: list[int] = []

@@ -16,6 +16,13 @@ port of droplet_visual_odometry_tpu/backend/loop_closure.py.
      independent restarts (P = R * n_slot pairs in one call), then per
      candidate the consensus-medoid restart and the restart dispersion.
 
+Spans (utils/profiling): `loop.retrieval` (both tiers, with the device
+interval; count `pairs` shortlisted), `loop.select` (the host selection
+and the extra pairs), `loop.verify` (the verification program and its
+fetch, with the device interval; counts `candidates`, `slots` (R * n_slot
+pairs verified) and `accepted` (the edges returned)) and `loop.pick`
+(the winning restarts, the dispersions and the inlier gates).
+
 Random draws: verification takes the reference's own uniforms, split from
 PRNGKey(seed) with `seed` 0 unless the caller says otherwise
 (loop_closure.py:306; utils/threefry.py makes them bit for bit on the
@@ -35,7 +42,7 @@ import torch
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOStepResult, two_frame_vo
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features, unpack_bits_pm1
-from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, profiling, threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,20 +286,25 @@ def _candidate_pairs(
     greedy selection; none below min_gap + 2 keyframes), then the caller's
     extra pairs not already chosen."""
     chosen_pairs: list[tuple[int, int]] = []
+    counts = None
     if n_kf >= cfg.min_gap + 2:
-        ia, ib = _shortlist_pairs(feats, n_kf, cfg.min_gap, cfg.shortlist)
-        counts = _retrieval_counts(feats.desc, feats.valid, ia, ib, cfg.match_max_distance).cpu().numpy()
-        chosen_pairs = _select_candidates(ia, ib, counts, cfg)
-    n_retrieved = len(chosen_pairs)
-    if extra_pairs is not None:
-        seen = set(chosen_pairs)
-        for a, b in zip(*extra_pairs):
-            pair = (int(a), int(b))
-            if pair not in seen and 0 <= pair[0] < pair[1] < n_kf:
-                chosen_pairs.append(pair)
-                seen.add(pair)
-    ca = np.asarray([p[0] for p in chosen_pairs], np.int32)
-    cb = np.asarray([p[1] for p in chosen_pairs], np.int32)
+        with profiling.span("loop.retrieval", device=feats.desc.device) as rec:
+            ia, ib = _shortlist_pairs(feats, n_kf, cfg.min_gap, cfg.shortlist)
+            counts = _retrieval_counts(feats.desc, feats.valid, ia, ib, cfg.match_max_distance).cpu().numpy()
+            rec.set(pairs=len(ia))
+    with profiling.span("loop.select"):
+        if counts is not None:
+            chosen_pairs = _select_candidates(ia, ib, counts, cfg)
+        n_retrieved = len(chosen_pairs)
+        if extra_pairs is not None:
+            seen = set(chosen_pairs)
+            for a, b in zip(*extra_pairs):
+                pair = (int(a), int(b))
+                if pair not in seen and 0 <= pair[0] < pair[1] < n_kf:
+                    chosen_pairs.append(pair)
+                    seen.add(pair)
+        ca = np.asarray([p[0] for p in chosen_pairs], np.int32)
+        cb = np.asarray([p[1] for p in chosen_pairs], np.int32)
     return ca, cb, n_retrieved
 
 
@@ -343,23 +355,26 @@ def find_loop_closures(
 
     # Verification over (R, n_slot) flattened: each candidate under R
     # restarts (padded slots are dropped below).
-    corners = torch.nan_to_num(torch.as_tensor(np.asarray(kf_corners), dtype=torch.float32, device=dev))
-    mvalid = torch.as_tensor(np.asarray(kf_marker_present), dtype=torch.bool, device=dev)
-    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
     n_c = len(ca)
     n_slot = verify_slots(n_c, cfg)
     R = max(1, cfg.verify_restarts)
-    ca_p, cb_p = _restart_layout(ca, cb, n_slot, R)
-    if draws is None:
-        draws = lambda n: reference_draws(n, vo_cfg.ransac, seed, dev)
-    u_hyp, u_lo = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in draws(R * n_slot))
-    res = _verify_candidates(feats, corners, mvalid, Kt, float(real_marker_length), vo_cfg, ca_p, cb_p, u_hyp, u_lo)
-    res = VOStepResult(*(t.cpu().numpy().reshape((R, n_slot) + tuple(t.shape[1:])) for t in res))
-    best_r, rot_disp, dir_disp = _pick_restarts(res, R, n_slot)
-    res = VOStepResult(*(a[best_r, np.arange(n_slot)][:n_c] for a in res))
-    rot_disp, dir_disp = rot_disp[:n_c], dir_disp[:n_c]
-
-    ok = res.ok & (res.n_inliers >= min_inl)
+    with profiling.span("loop.verify", device=dev, candidates=n_c, slots=R * n_slot) as verify:
+        corners = torch.nan_to_num(torch.as_tensor(np.asarray(kf_corners), dtype=torch.float32, device=dev))
+        mvalid = torch.as_tensor(np.asarray(kf_marker_present), dtype=torch.bool, device=dev)
+        Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
+        ca_p, cb_p = _restart_layout(ca, cb, n_slot, R)
+        if draws is None:
+            draws = lambda n: reference_draws(n, vo_cfg.ransac, seed, dev)
+        u_hyp, u_lo = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in draws(R * n_slot))
+        res = _verify_candidates(feats, corners, mvalid, Kt, float(real_marker_length), vo_cfg, ca_p, cb_p,
+                                 u_hyp, u_lo)
+        res = VOStepResult(*(t.cpu().numpy().reshape((R, n_slot) + tuple(t.shape[1:])) for t in res))
+    with profiling.span("loop.pick"):
+        best_r, rot_disp, dir_disp = _pick_restarts(res, R, n_slot)
+        res = VOStepResult(*(a[best_r, np.arange(n_slot)][:n_c] for a in res))
+        rot_disp, dir_disp = rot_disp[:n_c], dir_disp[:n_c]
+        ok = res.ok & (res.n_inliers >= min_inl)
+    verify.set(accepted=int(ok.sum()))
     if not ok.any():
         return empty
     rel = np.asarray(res.rel, np.float64)[ok]

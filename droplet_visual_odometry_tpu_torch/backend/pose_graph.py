@@ -29,7 +29,7 @@ import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.parallel.sharding import broadcast, local_shard, psum
-from droplet_visual_odometry_tpu_torch.utils import graphs
+from droplet_visual_odometry_tpu_torch.utils import graphs, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +118,7 @@ def _hx_local(B: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, x: torch.Tens
     return torch.zeros_like(x).index_add_(0, ei, y).index_add_(0, ej, -y)
 
 
-def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) -> torch.Tensor:
+def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-preconditioned CG: solve H x = b with M^-1 given as (M, 6, 6).
 
     The reference's while loop (k < iters and |r|^2 > tol |b|^2) without a
@@ -126,7 +126,8 @@ def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) ->
     device-side flag sets the step length to 0. x and r then stay as they
     were (x + 0 p = x for finite p), z = M^-1 r is recomputed from the same r
     to the same bits, and p, which no longer reaches x, grows at most by z
-    per step; so x is the loop's."""
+    per step; so x is the loop's. Returns (x, live): live () int32 on the
+    device, the steps whose flag was set, i.e. the loop's iteration count."""
 
     def apply_minv(r):
         return torch.einsum("mab,mb->ma", Minv, r)
@@ -138,7 +139,9 @@ def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) ->
     stop = tol * torch.clamp(torch.sum(b * b), min=1e-30)
     active = torch.sum(r * r) > stop
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    flags = []
     for _ in range(iters):
+        flags.append(active)
         Hp = matvec(p)
         rz = torch.sum(r * z)
         alpha = torch.where(active, rz / torch.clamp(torch.sum(p * Hp), min=1e-30), zero)
@@ -149,7 +152,8 @@ def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) ->
         p = z_new + beta * p
         z = z_new
         active = active & (torch.sum(r * r) > stop)
-    return x
+    live = torch.stack(flags).sum(dtype=torch.int32) if flags else torch.zeros((), dtype=torch.int32, device=b.device)
+    return x, live
 
 
 def _solve_dense(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, damping: float) -> torch.Tensor:
@@ -168,7 +172,9 @@ def _solve_dense(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, dam
     return torch.linalg.solve_ex(Hd, b.reshape(M * 6) * mask).result.reshape(M, 6)
 
 
-def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: PoseGraphConfig, mesh=None) -> torch.Tensor:
+def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: PoseGraphConfig,
+               mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, live CG steps): the block-Jacobi PCG on the normal system."""
     b, D = _assemble_rhs_diag(M, graph, B, g)
     gm = _gauge_mask(M, B)
     b = b * gm
@@ -205,19 +211,21 @@ def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: 
 
 def _gn_step(graph: PoseGraph, poses: torch.Tensor, cur_cost: torch.Tensor, cfg: PoseGraphConfig, mesh=None):
     """One Gauss-Newton step from (poses, cur_cost): the step is kept only
-    if it lowers the cost (decided on the device). Returns the new pair."""
+    if it lowers the cost (decided on the device). Returns the new pair and
+    the live CG steps (() int32; 0 for the dense solve)."""
     M = poses.shape[0]
     B, g = _edge_blocks(poses, graph)
     if cfg.solver == "dense":
         dx = _solve_dense(M, graph, B, g, cfg.damping)
+        live = torch.zeros((), dtype=torch.int32, device=B.device)
     else:
-        dx = _solve_pcg(M, graph, B, g, cfg, mesh)
+        dx, live = _solve_pcg(M, graph, B, g, cfg, mesh)
     # b accumulated -grad blocks (b_i = +J_j^T W r = -grad_i), so dx is
     # already the descent step.
     new_poses = se3.se3_exp(dx) @ poses
     new_cost = cost(graph._replace(poses=new_poses))
     ok = (new_cost < cur_cost) & torch.isfinite(new_cost)
-    return torch.where(ok, new_poses, poses), torch.where(ok, new_cost, cur_cost)
+    return torch.where(ok, new_poses, poses), torch.where(ok, new_cost, cur_cost), live
 
 
 def optimize_eager(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
@@ -229,7 +237,7 @@ def optimize_eager(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), m
     initial = cost(graph)
     poses, cur_cost = graph.poses, initial
     for _ in range(cfg.iters):
-        poses, cur_cost = _gn_step(graph, poses, cur_cost, cfg, mesh)
+        poses, cur_cost, _ = _gn_step(graph, poses, cur_cost, cfg, mesh)
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
 
 
@@ -253,7 +261,11 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=No
     the device, so every rank issues the same collectives. Over an NCCL
     mesh the GN step is captured with those collectives inside (one program
     per signature and mesh, the reference's optimize_jit with its psum); on
-    gloo or without a group it runs op by op (utils/graphs.py)."""
+    gloo or without a group it runs op by op (utils/graphs.py).
+
+    Each GN step is a `pg.step` span (utils/profiling) with its device
+    interval and the count `live_iters`: the CG steps whose stop flag was
+    set, a device scalar the step returns beside poses and cost."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
 
@@ -263,7 +275,10 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=No
     initial = cost(graph)
     poses, cur_cost = graph.poses, initial
     for _ in range(cfg.iters):
-        poses, cur_cost = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg, graph.poses.device, mesh)
+        with profiling.span("pg.step", device=graph.poses.device) as rec:
+            poses, cur_cost, live = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg,
+                                               graph.poses.device, mesh)
+            rec.set(live_iters=live)
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
 
 

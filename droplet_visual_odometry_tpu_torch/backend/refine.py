@@ -10,6 +10,15 @@ orchestration in numpy, device work on the frames' device:
 
 Both take the frames as a tensor or as a callable idx -> frames (the
 streaming path, where whole-sequence frames never exist on the device).
+
+Spans (utils/profiling): `refine.pose_graph` around pose_graph_trajectory,
+holding `refine.keyframes` (selection and bridge pairs, count
+`keyframes`), `refine.fetch` (the keyframes' gather, copy and remap; a
+streamed fetch holds `refine.gather` and `refine.upload`, see pipeline),
+`refine.features` (the keyframe frontend), loop closure's `loop.*`,
+`refine.graph` (the loop graph and its padding), `pg.optimize` (the GN
+replays and the result's fetch) and `refine.reanchor`; `refine.ba`
+around refine_trajectory.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_descr
 from droplet_visual_odometry_tpu_torch.frontend.matcher import Matches
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 from droplet_visual_odometry_tpu_torch.parallel import sharding
+from droplet_visual_odometry_tpu_torch.utils import profiling
 
 
 def _frame_fetcher(frames):
@@ -100,6 +110,7 @@ def _gate(new_poses: np.ndarray, old_poses: np.ndarray, cost_ok: bool, m_before,
                     "trans_frac": round(float(trans_corr.max()) / max(span, 1e-9), 4)}
 
 
+@profiling.span("refine.ba")
 def refine_trajectory(
     frames,  # (N, H, W) float frames (undistorted) or callable idx -> frames
     abs_poses: np.ndarray,  # (N, 4, 4) VO absolute poses (cTm)
@@ -269,6 +280,7 @@ def loop_graph(
     return pose_graph.add_edges(graph, edges.i, edges.j, loop_meas, loop_w)
 
 
+@profiling.span("refine.pose_graph")
 def pose_graph_trajectory(
     frames,  # (N, H, W) float frames (undistorted) or callable idx -> frames
     abs_poses: np.ndarray,  # (N, 4, 4) VO absolute poses (cTm)
@@ -298,15 +310,19 @@ def pose_graph_trajectory(
     """
     cfg = cfg or PoseGraphRefineConfig()
     abs_poses = np.asarray(abs_poses, np.float64)
-    kf_idx = keyframe_indices(abs_poses, n_inliers, marker_present, cfg.kf)
+    with profiling.span("refine.keyframes") as rec:
+        kf_idx = keyframe_indices(abs_poses, n_inliers, marker_present, cfg.kf)
+        bridge_a, bridge_b = bridge_pairs(marker_present, kf_idx)
+        rec.set(keyframes=len(kf_idx))
     info: dict = {"n_keyframes": len(kf_idx), "n_loop_edges": 0}
     if len(kf_idx) < cfg.lc.min_gap + 2:
         return abs_poses.copy(), info
 
-    feats = detect_and_describe_batch(
-        _frame_fetcher(frames)(kf_idx), k=cfg.n_keypoints, threshold=cfg.fast_threshold
-    )
-    bridge_a, bridge_b = bridge_pairs(marker_present, kf_idx)
+    with profiling.span("refine.fetch"):
+        kf_frames = _frame_fetcher(frames)(kf_idx)
+    with profiling.span("refine.features", device=kf_frames.device):
+        feats = detect_and_describe_batch(kf_frames, k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    del kf_frames  # the keyframes' pixels end with the frontend: verification's peak must not hold them
     edges = loop_closure.find_loop_closures(
         feats,
         abs_poses[kf_idx],
@@ -325,23 +341,27 @@ def pose_graph_trajectory(
     if len(edges.i) == 0:
         return abs_poses.copy(), info
 
-    graph = loop_graph(abs_poses[kf_idx], kf_idx, edges, n_inliers, cfg, pair_scale_ok, feats.desc.device)
-    info["edge_rot_disp_deg"] = [round(float(v), 2) for v in edges.rot_disp_deg]
-    info["edge_dir_disp_deg"] = [round(float(v), 2) for v in edges.dir_disp_deg]
-    # Powers-of-two buckets for (M, E), as the reference pads its graphs.
-    M = int(graph.poses.shape[0])
-    graph = pose_graph.pad_graph(
-        graph, pose_graph.next_bucket(M), pose_graph.next_bucket(int(graph.edge_i.shape[0]))
-    )
+    with profiling.span("refine.graph"):
+        graph = loop_graph(abs_poses[kf_idx], kf_idx, edges, n_inliers, cfg, pair_scale_ok, feats.desc.device)
+        info["edge_rot_disp_deg"] = [round(float(v), 2) for v in edges.rot_disp_deg]
+        info["edge_dir_disp_deg"] = [round(float(v), 2) for v in edges.dir_disp_deg]
+        # Powers-of-two buckets for (M, E), as the reference pads its graphs.
+        M = int(graph.poses.shape[0])
+        graph = pose_graph.pad_graph(
+            graph, pose_graph.next_bucket(M), pose_graph.next_bucket(int(graph.edge_i.shape[0]))
+        )
     if isinstance(mesh, str):
         if mesh != "auto":
             raise ValueError(f"mesh must be a Mesh, None or 'auto'; got {mesh!r}")
         mesh = None
         if sharding.initialised() and dist.get_world_size() > 1:
             mesh = sharding.make_mesh(axis_name="edges", device=graph.poses.device)
-    res = pose_graph.optimize(graph, cfg.pg, mesh=mesh)
-    info["pg_initial_cost"] = float(res.initial_cost)
-    info["pg_final_cost"] = float(res.final_cost)
+    with profiling.span("pg.optimize", device=graph.poses.device):
+        res = pose_graph.optimize(graph, cfg.pg, mesh=mesh)
+        info["pg_initial_cost"] = float(res.initial_cost)
+        info["pg_final_cost"] = float(res.final_cost)
+        poses_kf = res.poses[:M].cpu().numpy()
     info["pg_mesh_devices"] = 1 if mesh is None else mesh.size
-    refined_kf = np.linalg.inv(res.poses[:M].cpu().numpy().astype(np.float64))
-    return reanchor_segments(abs_poses, kf_idx, refined_kf), info
+    with profiling.span("refine.reanchor"):
+        refined_kf = np.linalg.inv(poses_kf.astype(np.float64))
+        return reanchor_segments(abs_poses, kf_idx, refined_kf), info

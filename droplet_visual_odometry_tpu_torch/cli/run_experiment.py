@@ -3,8 +3,15 @@ with the same flags and defaults.
 
 The run goes to the card unless `--platform cpu` is given; a missing card
 raises (the port never moves a run to the CPU by itself). `--profile-dir`
-writes a torch.profiler Chrome trace of the run there. The printed JSON
-summary has the reference's keys.
+writes a Chrome trace of the run there (`torch_trace.json`, for
+chrome://tracing or Perfetto): torch.profiler's host ops and, on the card,
+its kernels and copies, and beside them, on the same clock, the port's own
+spans (utils/profiling) in a process "recorder": one row of host spans
+(`pipeline.*`, `vo.*`, `checkpoint.*`, `refine.*`, `loop.*`, `pg.*`,
+`graphs.*`, with their counts as arguments) and one row of device
+intervals (the device spans, each graph replay, the VO replay's
+`vo.frontend` and `vo.solver` stages). The printed JSON summary has the
+reference's keys.
 
 Usage:
   python -m droplet_visual_odometry_tpu_torch.cli.run_experiment \\
@@ -61,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="npz path for chunked checkpoint/resume of long runs")
     p.add_argument("--checkpoint-chunk", type=int, default=256)
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler Chrome trace of the run into this dir")
+                   help="write a Chrome trace of the run (torch.profiler's and the port's spans) into this dir")
     p.add_argument("--plot", default=None, help="write a 3-D GT-vs-VO plot PNG here")
     p.add_argument("--dump-matches", type=int, default=0, metavar="N",
                    help="write matched-keypoint debug images (RANSAC inliers "

@@ -25,7 +25,7 @@ from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig, ra
 from droplet_visual_odometry_tpu_torch.frontend import matcher
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
-from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, profiling, threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,39 +151,48 @@ def _sequence_body(
     """The program of run_sequence, on staged device tensors: corners (N, 4,
     2) float32 with NaN where absent, present (N,) bool, init_pose (4, 4)
     and K (3, 3) float32, init_scale () float32, and either the run key (2,)
-    int64 or u_hyp/u_lo. No host read and no host data inside."""
-    keys = None
-    if u_hyp is None:
-        keys = threefry.split(key, frames.shape[0] - 1)
-    corners = torch.nan_to_num(corners)
+    int64 or u_hyp/u_lo. No host read and no host data inside.
 
-    feats = detect_and_describe_batch(
-        frames,
-        k=cfg.n_keypoints,
-        threshold=cfg.fast_threshold,
-        arc_length=cfg.fast_arc_length,
-        mode=cfg.frontend,
-        dog_threshold=cfg.dog_threshold,
-        n_levels=cfg.n_levels if cfg.frontend == "orb" else 1,
-        scale_factor=cfg.scale_factor,
-    )
-    feats_prev = Features(*(a[:-1] for a in feats))
-    feats_curr = Features(*(a[1:] for a in feats))
-    res = two_frame_vo(
-        feats_prev, feats_curr, corners[:-1], corners[1:], present[:-1] & present[1:],
-        K, real_marker_length, cfg, u_hyp, u_lo, keys,
-    )
+    Captured, the body times its two stages on every replay
+    (profiling.device_stage): `vo.frontend` (the draws' keys, pyramid,
+    FAST, NMS/top-k, blur, describe) and `vo.solver` (match, LO-RANSAC,
+    scale, chain)."""
+    n = frames.shape[0]
+    with profiling.device_stage("vo.frontend", frames=n):
+        keys = None
+        if u_hyp is None:
+            keys = threefry.split(key, n - 1)
+        corners = torch.nan_to_num(corners)
 
-    if cfg.scale_mode == "hold":
-        scales = hold_fill(res.scale, res.scale_ok, init_scale)
-        rels = res.rel_unit.clone()
-        rels[:, :3, 3] = rels[:, :3, 3] * scales[:, None]
-    else:
-        scales = res.scale
-        rels = res.rel
+        feats = detect_and_describe_batch(
+            frames,
+            k=cfg.n_keypoints,
+            threshold=cfg.fast_threshold,
+            arc_length=cfg.fast_arc_length,
+            mode=cfg.frontend,
+            dog_threshold=cfg.dog_threshold,
+            n_levels=cfg.n_levels if cfg.frontend == "orb" else 1,
+            scale_factor=cfg.scale_factor,
+        )
+    with profiling.device_stage("vo.solver", frames=n):
+        feats_prev = Features(*(a[:-1] for a in feats))
+        feats_curr = Features(*(a[1:] for a in feats))
+        res = two_frame_vo(
+            feats_prev, feats_curr, corners[:-1], corners[1:], present[:-1] & present[1:],
+            K, real_marker_length, cfg, u_hyp, u_lo, keys,
+        )
+
+        if cfg.scale_mode == "hold":
+            scales = hold_fill(res.scale, res.scale_ok, init_scale)
+            rels = res.rel_unit.clone()
+            rels[:, :3, 3] = rels[:, :3, 3] * scales[:, None]
+        else:
+            scales = res.scale
+            rels = res.rel
+        abs_poses = chain_poses(init_pose, rels)
 
     return VOTrajectory(
-        abs_poses=chain_poses(init_pose, rels),
+        abs_poses=abs_poses,
         rel_poses=rels,
         n_matches=res.n_matches,
         n_inliers=res.n_inliers,

@@ -9,6 +9,17 @@ stream: raw frames stay on the host and cross to the device one chunk at a
 time (utils/checkpoint.py), and the backends fetch their keyframes the same
 way. The entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, as the tests do); `"cuda"` without a GPU raises.
+
+Spans (utils/profiling): each `run_experiment` is one root,
+`pipeline.run_experiment` (counts `frames`, `pairs`, `hypotheses`,
+`matches`, `inliers` from the VO trajectory's host arrays), with the
+children `pipeline.camera` (the undistortion map, the effective
+intrinsics and marker corners), `pipeline.preprocess` (the upload and
+remap of in-memory frames, with its device interval), `vo.run` (the VO
+program, in memory or chunked), `vo.fetch` (the trajectory's host copy),
+`pipeline.anchor` (ground truth and anchoring), the backend's span,
+`pipeline.metrics` (inverses, ATE/RPE, the relative VO poses) and
+`pipeline.tum` (the six TUM files).
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ from droplet_visual_odometry_tpu_torch.data.sequence import VOSequence
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOTrajectory, run_sequence
 from droplet_visual_odometry_tpu_torch.eval import metrics, tum
 from droplet_visual_odometry_tpu_torch.utils.checkpoint import run_sequence_checkpointed
-from droplet_visual_odometry_tpu_torch.utils import threefry
+from droplet_visual_odometry_tpu_torch.utils import profiling, threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("none", "pose_graph", "ba")
@@ -120,72 +131,105 @@ def run_experiment(
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend}")
-    dev = resolve_device(device)
-    preprocess = make_preprocessor(seq, dev)
-    K = effective_K(seq).astype(np.float32)
-    corners = effective_marker_corners(seq, K)
-    if stream is None:
-        stream = bool(checkpoint_path) or 4 * int(np.prod(seq.frames.shape)) > STREAM_BYTES
-    first = int(np.argmax(seq.marker_present)) if seq.marker_present.any() else 0
-    init_pose = np.asarray(seq.marker_poses[first], np.float32)
+    with profiling.span("pipeline.run_experiment", backend=backend) as root:
+        dev = resolve_device(device)
+        with profiling.span("pipeline.camera"):
+            preprocess = make_preprocessor(seq, dev)
+            K = effective_K(seq).astype(np.float32)
+            corners = effective_marker_corners(seq, K)
+            if stream is None:
+                stream = bool(checkpoint_path) or 4 * int(np.prod(seq.frames.shape)) > STREAM_BYTES
+            first = int(np.argmax(seq.marker_present)) if seq.marker_present.any() else 0
+            init_pose = np.asarray(seq.marker_poses[first], np.float32)
+        if not stream:
+            with profiling.span("pipeline.preprocess", device=dev):
+                frames = preprocess(seq.frames)
 
-    key = threefry.prng_key(seed, dev)  # both branches draw from PRNGKey(seed), as the reference's
-    if stream:
-        traj = run_sequence_checkpointed(
-            seq.frames, corners, np.asarray(seq.marker_present), init_pose, K, seq.real_marker_length, cfg,
-            path=checkpoint_path, chunk=checkpoint_chunk, preprocess=preprocess, device=dev, key=key,
+        with profiling.span("vo.run", stream=bool(stream)):
+            key = threefry.prng_key(seed, dev)  # both branches draw from PRNGKey(seed), as the reference's
+            if stream:
+                traj = run_sequence_checkpointed(
+                    seq.frames, corners, np.asarray(seq.marker_present), init_pose, K, seq.real_marker_length, cfg,
+                    path=checkpoint_path, chunk=checkpoint_chunk, preprocess=preprocess, device=dev, key=key,
+                )
+            else:
+                traj = run_sequence(
+                    frames, corners, np.asarray(seq.marker_present), init_pose, K,
+                    seq.real_marker_length, cfg, key=key,
+                )
+        if stream:
+            # The backends take the frames or a fetcher: here keyframes cross to
+            # the device as a host gather.
+            frames = _host_fetcher(seq.frames, preprocess, dev)
+        else:
+            with profiling.span("vo.fetch"):
+                traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
+                profiling.RECORDER.resolve()
+        root.set(**_ransac_counts(traj, cfg))
+
+        with profiling.span("pipeline.anchor"):
+            gt_abs, gt_rel = gt_streams(seq)
+            vo_abs = np.asarray(traj.abs_poses, np.float64)
+            # Anchor at the first marker-bearing frame: abs_i <- abs_i @ inv(abs_first) @ init_pose.
+            if first > 0:
+                vo_abs = vo_abs @ (np.linalg.inv(vo_abs[first]) @ np.asarray(init_pose, np.float64))
+
+        backend_info: dict = {}
+        if backend == "pose_graph":
+            vo_abs, backend_info = pose_graph_trajectory(
+                frames, vo_abs, traj.n_inliers, corners, np.asarray(seq.marker_present), K,
+                seq.real_marker_length, cfg, refine_cfg or PoseGraphRefineConfig(), pair_scale_ok=traj.scale_ok,
+            )
+        elif backend == "ba":
+            vo_abs, backend_info = refine_trajectory(
+                frames, vo_abs, traj.n_inliers, K, refine_cfg or RefineConfig(),
+                marker_corners=corners, real_marker_length=seq.real_marker_length,
+            )
+
+        with profiling.span("pipeline.metrics"):
+            v = torch.as_tensor(vo_abs, dtype=torch.float32)
+            vo_rel = se3.gt_relative(v[:-1], v[1:]).numpy().astype(np.float64)
+            # Metrics on the camera trajectory in the marker frame (mTc = inv(cTm)).
+            present = seq.marker_present
+            gt_cam = np.linalg.inv(gt_abs[present])
+            vo_cam = np.linalg.inv(vo_abs[present])
+            ate, rpe = metrics.ate(gt_cam, vo_cam, align="none"), metrics.rpe(gt_cam, vo_cam, delta=1)
+        paths = None
+        if out_dir is not None:
+            with profiling.span("pipeline.tum"):
+                paths = tum.write_experiment_streams(out_dir, seq.timestamps, gt_abs, gt_rel, vo_abs, vo_rel)
+        return ExperimentResult(
+            timestamps=seq.timestamps,
+            gt_abs=gt_abs,
+            gt_rel=gt_rel,
+            vo_abs=vo_abs,
+            vo_rel=vo_rel,
+            trajectory=traj,
+            ate=ate,
+            rpe=rpe,
+            stream_paths=paths,
+            backend_info=backend_info,
         )
-        # The backends take the frames or a fetcher: here keyframes cross to
-        # the device as a host gather.
-        frames = lambda idx: preprocess(seq.frames[np.asarray(idx)])
-    else:
-        frames = preprocess(seq.frames)
-        traj = run_sequence(
-            frames, corners, np.asarray(seq.marker_present), init_pose, K,
-            seq.real_marker_length, cfg, key=key,
-        )
-        traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
 
-    gt_abs, gt_rel = gt_streams(seq)
-    vo_abs = np.asarray(traj.abs_poses, np.float64)
-    # Anchor at the first marker-bearing frame: abs_i <- abs_i @ inv(abs_first) @ init_pose.
-    if first > 0:
-        vo_abs = vo_abs @ (np.linalg.inv(vo_abs[first]) @ np.asarray(init_pose, np.float64))
 
-    backend_info: dict = {}
-    if backend == "pose_graph":
-        vo_abs, backend_info = pose_graph_trajectory(
-            frames, vo_abs, traj.n_inliers, corners, np.asarray(seq.marker_present), K,
-            seq.real_marker_length, cfg, refine_cfg or PoseGraphRefineConfig(), pair_scale_ok=traj.scale_ok,
-        )
-    elif backend == "ba":
-        vo_abs, backend_info = refine_trajectory(
-            frames, vo_abs, traj.n_inliers, K, refine_cfg or RefineConfig(),
-            marker_corners=corners, real_marker_length=seq.real_marker_length,
-        )
+def _ransac_counts(traj: VOTrajectory, cfg: VOConfig) -> dict[str, int]:
+    """The VO run's RANSAC work from its host arrays: frames, pairs,
+    hypotheses drawn (pairs x cfg's hypotheses), matches and inliers."""
+    pairs = int(np.asarray(traj.n_matches).shape[0])
+    return dict(frames=pairs + 1, pairs=pairs, hypotheses=pairs * cfg.ransac.n_hypotheses,
+                matches=int(np.sum(traj.n_matches)), inliers=int(np.sum(traj.n_inliers)))
 
-    v = torch.as_tensor(vo_abs, dtype=torch.float32)
-    vo_rel = se3.gt_relative(v[:-1], v[1:]).numpy().astype(np.float64)
 
-    # Metrics on the camera trajectory in the marker frame (mTc = inv(cTm)).
-    present = seq.marker_present
-    gt_cam = np.linalg.inv(gt_abs[present])
-    vo_cam = np.linalg.inv(vo_abs[present])
-    paths = None
-    if out_dir is not None:
-        paths = tum.write_experiment_streams(out_dir, seq.timestamps, gt_abs, gt_rel, vo_abs, vo_rel)
-    return ExperimentResult(
-        timestamps=seq.timestamps,
-        gt_abs=gt_abs,
-        gt_rel=gt_rel,
-        vo_abs=vo_abs,
-        vo_rel=vo_rel,
-        trajectory=traj,
-        ate=metrics.ate(gt_cam, vo_cam, align="none"),
-        rpe=metrics.rpe(gt_cam, vo_cam, delta=1),
-        stream_paths=paths,
-        backend_info=backend_info,
-    )
+def _host_fetcher(host_frames, preprocess, dev):
+    """idx -> the frames at idx, gathered on the host (`refine.gather`),
+    then copied to `dev` and remapped there (`refine.upload`, with its
+    device interval)."""
+    def fetch(idx):
+        with profiling.span("refine.gather"):
+            raw = host_frames[np.asarray(idx)]
+        with profiling.span("refine.upload", device=dev):
+            return preprocess(raw)
+    return fetch
 
 
 def dump_match_images(

@@ -43,7 +43,7 @@ from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, two_frame_
 from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
 from droplet_visual_odometry_tpu_torch.frontend.orb import Features
 from droplet_visual_odometry_tpu_torch.groundtruth import GroundTruthConfig, MarkerDetections, marker_pose_to_cTm
-from droplet_visual_odometry_tpu_torch.utils import graphs, threefry
+from droplet_visual_odometry_tpu_torch.utils import graphs, profiling, threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 Draws = Callable[[int], tuple[torch.Tensor, torch.Tensor | None]]
@@ -185,30 +185,34 @@ class OnlineVO:
              markers: MarkerDetections | None = None) -> StreamResult:
         """Process one frame (and the marker detections of the same stamp):
         the chained pose estimate. Until the first marker the engine stays
-        unarmed and frames only prime it."""
-        self._check_frame(frame)
-        gt_pose, corners, mvalid = self._marker_info(markers)
-        if markers is not None and self.on_marker:
-            self._broadcast_markers(timestamp, markers)
+        unarmed and frames only prime it. One push is one root span,
+        `online.push` (counts `inliers`, `matches`; see _replay)."""
+        with profiling.span("online.push") as rec:
+            self._check_frame(frame)
+            gt_pose, corners, mvalid = self._marker_info(markers)
+            if markers is not None and self.on_marker:
+                self._broadcast_markers(timestamp, markers)
 
-        if not self._armed:
-            if gt_pose is not None:  # the first marker arms the engine and seeds the pose
-                self._armed = True
-                self._pose = np.asarray(gt_pose, np.float32)
-            self._prime(frame, corners, mvalid)
-            return self._result(timestamp, np.eye(4, dtype=np.float32), gt_pose, 0, self._armed)
+            if not self._armed:
+                if gt_pose is not None:  # the first marker arms the engine and seeds the pose
+                    self._armed = True
+                    self._pose = np.asarray(gt_pose, np.float32)
+                self._prime(frame, corners, mvalid)
+                return self._result(timestamp, np.eye(4, dtype=np.float32), gt_pose, 0, self._armed)
 
-        self._step += 1
-        marker_valid = bool(self._prev_valid) and bool(mvalid)
-        if self.device.type == "cuda":
-            out = self._replay(frame, corners, marker_valid)
-        else:
-            self._prev_feats, out = self._run_eager(frame, corners, marker_valid, self._step)
-        rel = out[:16].numpy().reshape(4, 4)
-        self._pose = rel @ self._pose
-        self._prev_corners = np.asarray(corners, np.float32)
-        self._prev_valid = mvalid
-        return self._result(timestamp, rel, gt_pose, int(out[16]), bool(out[17]), int(out[18]))
+            self._step += 1
+            marker_valid = bool(self._prev_valid) and bool(mvalid)
+            if self.device.type == "cuda":
+                out = self._replay(frame, corners, marker_valid)
+            else:
+                self._prev_feats, out = self._run_eager(frame, corners, marker_valid, self._step)
+            rel = out[:16].numpy().reshape(4, 4)
+            self._pose = rel @ self._pose
+            self._prev_corners = np.asarray(corners, np.float32)
+            self._prev_valid = mvalid
+            n_inliers, n_matches = int(out[16]), int(out[18])
+            rec.set(inliers=n_inliers, matches=n_matches)
+            return self._result(timestamp, rel, gt_pose, n_inliers, bool(out[17]), n_matches)
 
     def step_eager(self, frame: np.ndarray, markers: MarkerDetections | None = None) -> torch.Tensor:
         """What the next armed push of this frame computes, run op by op on
@@ -301,12 +305,18 @@ class OnlineVO:
 
     def _replay(self, frame, corners, marker_valid: bool) -> torch.Tensor:
         """The push on the card: stage, replay the captured graph (capture it
-        at the first armed push), fetch."""
+        at the first armed push), fetch; spans `online.capture`,
+        `online.stage`, `online.replay` (with its device interval) and
+        `online.fetch`."""
         if self._graph is None:
-            self._capture(frame)
-        self._stage(frame, corners, marker_valid)
-        self._graph.replay()
-        return self._static["out"].cpu()
+            with profiling.span("online.capture"):
+                self._capture(frame)
+        with profiling.span("online.stage"):
+            self._stage(frame, corners, marker_valid)
+        with profiling.span("online.replay", device=self.device):
+            self._graph.replay()
+        with profiling.span("online.fetch"):
+            return self._static["out"].cpu()
 
     def _capture(self, frame: np.ndarray | torch.Tensor) -> None:
         """Build the static buffers from the carried features and capture the

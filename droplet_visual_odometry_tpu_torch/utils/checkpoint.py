@@ -23,6 +23,12 @@ Random draws: the reference's. The chunk whose first pair ends at frame
 (key, start) alone, so a resumed run draws what the uninterrupted run drew;
 `draws(start, n_pairs)` injects a chunk's uniforms instead. The state file
 keeps the run key, as the reference's does.
+
+Spans (utils/profiling): `checkpoint.chunk` per chunk (count `pairs`),
+holding `checkpoint.fill` (the host copy into the pinned buffer),
+`checkpoint.copy` (the copy to the card and the remap, with its device
+interval), the program's `graphs.replay` and `checkpoint.fetch` (the
+trajectory's host copy, after which the replay's stage times resolve).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, VOTrajectory, run_sequence
-from droplet_visual_odometry_tpu_torch.utils import threefry
+from droplet_visual_odometry_tpu_torch.utils import profiling, threefry
 from droplet_visual_odometry_tpu_torch.utils.device import resolve_device
 
 _FIELDS = ("abs_poses", "rel_poses", "n_matches", "n_inliers", "scales", "scale_ok", "ok")
@@ -129,44 +135,51 @@ def run_sequence_checkpointed(
     while start < n:
         stop = min(start + chunk, n)
         n_real = stop - (start - 1)  # frames of this chunk before padding
-        host[:n_real] = frames[start - 1 : stop]
-        host[n_real:] = host[n_real - 1]
-        mc = np.empty((chunk + 1, 4, 2), np.float32)
-        mc[:n_real] = marker_corners[start - 1 : stop]
-        mc[n_real:] = mc[n_real - 1]
-        mp = np.zeros(chunk + 1, bool)
-        mp[:n_real] = marker_present[start - 1 : stop]
-        u_hyp, u_lo = draws(start, chunk) if draws is not None else (None, None)
-        traj = run_sequence(
-            preprocess(staging.to(dev, non_blocking=True)), mc, mp, abs_last, K, real_marker_length, cfg,
-            u_hyp=u_hyp, u_lo=u_lo, init_scale=scale_last, init_scale_seen=scale_seen,
-            key=None if u_hyp is not None else threefry.fold_in(key, start),
-        )
-        traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
         n_pairs = n_real - 1
-        # abs_poses[0] repeats the carried pose: keep only the chunk's new frames.
-        acc["abs_poses"].append(traj.abs_poses[1 : 1 + n_pairs])
-        for f in _FIELDS[1:]:
-            acc[f].append(getattr(traj, f)[:n_pairs])
-        abs_last = traj.abs_poses[n_pairs]
-        scale_last = float(traj.scales[n_pairs - 1])
-        scale_seen = scale_seen or bool(np.any(traj.scale_ok[:n_pairs]))
-        start = stop
-        # progress before the save, as in the reference: an exception in the
-        # callback leaves this chunk unsaved, and a resume recomputes it.
-        if progress is not None:
-            progress(stop, n)
-        if path:
-            save_state(path, {
-                "n_total": np.asarray(n),
-                "chunk": np.asarray(chunk),
-                "next_start": np.asarray(start),
-                "abs_last": abs_last,
-                "scale_last": np.asarray(scale_last),
-                "scale_seen": np.asarray(scale_seen),
-                "key": key_words,
-                **{f: np.concatenate(acc[f], axis=0) for f in _FIELDS},
-            })
+        with profiling.span("checkpoint.chunk", pairs=n_pairs):
+            with profiling.span("checkpoint.fill"):
+                host[:n_real] = frames[start - 1 : stop]
+                host[n_real:] = host[n_real - 1]
+                mc = np.empty((chunk + 1, 4, 2), np.float32)
+                mc[:n_real] = marker_corners[start - 1 : stop]
+                mc[n_real:] = mc[n_real - 1]
+                mp = np.zeros(chunk + 1, bool)
+                mp[:n_real] = marker_present[start - 1 : stop]
+            with profiling.span("checkpoint.copy", device=dev):
+                chunk_frames = preprocess(staging.to(dev, non_blocking=True))
+            u_hyp, u_lo = draws(start, chunk) if draws is not None else (None, None)
+            traj = run_sequence(
+                chunk_frames, mc, mp, abs_last, K, real_marker_length, cfg,
+                u_hyp=u_hyp, u_lo=u_lo, init_scale=scale_last, init_scale_seen=scale_seen,
+                key=None if u_hyp is not None else threefry.fold_in(key, start),
+            )
+            del chunk_frames  # staged into the program's input: free before the next chunk's copy
+            with profiling.span("checkpoint.fetch"):
+                traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
+                profiling.RECORDER.resolve()
+            # abs_poses[0] repeats the carried pose: keep only the chunk's new frames.
+            acc["abs_poses"].append(traj.abs_poses[1 : 1 + n_pairs])
+            for f in _FIELDS[1:]:
+                acc[f].append(getattr(traj, f)[:n_pairs])
+            abs_last = traj.abs_poses[n_pairs]
+            scale_last = float(traj.scales[n_pairs - 1])
+            scale_seen = scale_seen or bool(np.any(traj.scale_ok[:n_pairs]))
+            start = stop
+            # progress before the save, as in the reference: an exception in the
+            # callback leaves this chunk unsaved, and a resume recomputes it.
+            if progress is not None:
+                progress(stop, n)
+            if path:
+                save_state(path, {
+                    "n_total": np.asarray(n),
+                    "chunk": np.asarray(chunk),
+                    "next_start": np.asarray(start),
+                    "abs_last": abs_last,
+                    "scale_last": np.asarray(scale_last),
+                    "scale_seen": np.asarray(scale_seen),
+                    "key": key_words,
+                    **{f: np.concatenate(acc[f], axis=0) for f in _FIELDS},
+                })
 
     out = {f: np.concatenate(acc[f], axis=0) for f in _FIELDS}
     out["abs_poses"] = np.concatenate([np.asarray(init_pose, np.float32)[None], out["abs_poses"]], axis=0)

@@ -35,6 +35,12 @@ its graph, its pool (the body's peak working set: about 11 GB for a
 257-frame stream chunk at 1440x1080) and its static buffers. An evicted
 program's graph is reset and its pool returned to the device.
 
+Spans (utils/profiling): `graphs.capture` around a capture and the
+evictions it causes (counts `captures`, `evictions`), `graphs.replay`
+around every `replay()` with its device interval (attribute `program`).
+Stages that a body marks with `profiling.device_stage` are captured as
+timing events and handed to the recorder after each replay.
+
 Launch counters: the kernels' counters (ops/cuda_*.LAUNCHES) tick where a
 wrapper's Python runs, i.e. in the warm-up and in the capture, never on a
 replay. Each program records `captured_launches`, the launches of one
@@ -78,6 +84,8 @@ from typing import Any, Callable, Hashable, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from droplet_visual_odometry_tpu_torch.utils import profiling
+
 CAPACITY = 6  # captured programs kept per device
 
 
@@ -101,6 +109,7 @@ class Program:
     capture_s: float  # host wall of warm-up + capture
     memory_bytes: int  # the graph's pool (memory_reserved growth over the capture) + static input bytes
     mesh: Any = None  # the parallel.sharding.Mesh whose collectives the graph holds (None: one device)
+    stages: list = dataclasses.field(default_factory=list)  # profiling.device_stage marks inside the graph
 
 
 _cache: dict[tuple, collections.OrderedDict] = {}  # (device, process group or None) -> LRU of programs
@@ -137,7 +146,7 @@ def _capture(name: str, body: Callable, inputs: Sequence, device: torch.device, 
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     before = launch_counts()
-    with torch.cuda.graph(graph):
+    with profiling.RECORDER.collect_stages() as stages, torch.cuda.graph(graph):
         outputs = body(*buffers)
     captured = {k: v - before[k] for k, v in launch_counts().items()}
     torch.cuda.synchronize(device)
@@ -145,7 +154,7 @@ def _capture(name: str, body: Callable, inputs: Sequence, device: torch.device, 
     return Program(
         name=name, graph=graph, inputs=buffers, outputs=outputs, captured_launches=captured,
         capture_s=time.perf_counter() - t0,
-        memory_bytes=torch.cuda.memory_reserved(device) - reserved + in_bytes, mesh=mesh,
+        memory_bytes=torch.cuda.memory_reserved(device) - reserved + in_bytes, mesh=mesh, stages=stages,
     )
 
 
@@ -169,10 +178,13 @@ def program(name: str, body: Callable, inputs: Sequence, static: Hashable, devic
     key = _key(name, static, inputs, device, mesh)
     prog = programs.get(key)
     if prog is None:
-        prog = _capture(name, body, inputs, device, mesh)
-        programs[key] = prog
-        while len(programs) > CAPACITY:
-            _evict(programs)
+        with profiling.span("graphs.capture", program=name, captures=1) as rec:
+            prog = _capture(name, body, inputs, device, mesh)
+            programs[key] = prog
+            evicted = max(0, len(programs) - CAPACITY)
+            for _ in range(evicted):
+                _evict(programs)
+            rec.set(evictions=evicted)
     programs.move_to_end(key)
     return prog
 
@@ -187,7 +199,9 @@ def run(name: str, body: Callable, inputs: Sequence, static: Hashable, device, m
         return body(*(None if x is None else x.to(device) for x in inputs))
     prog = program(name, body, inputs, static, device, mesh)
     _stage(prog.inputs, inputs)
-    prog.graph.replay()
+    with profiling.span("graphs.replay", device=device, program=name) as rec:
+        prog.graph.replay()
+    profiling.RECORDER.replayed(rec, prog.stages)
     return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, prog.outputs)
 
 
@@ -206,7 +220,8 @@ def clear(device=None, mesh=None) -> None:
     """Drop cached programs (of one device, or all), freeing their pools:
     every program, or with `mesh` only those whose graphs hold collectives
     on the mesh's process group. The next call of each signature captures
-    again."""
+    again. The recorder first takes the stage times of every finished replay."""
+    profiling.RECORDER.resolve()
     for progs in _caches(device, mesh):
         while progs:
             _drop(progs.popitem(last=False)[1])

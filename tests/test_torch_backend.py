@@ -211,9 +211,9 @@ def _pcg_while(matvec, b, Minv, iters, tol):
 @pytest.mark.parametrize("cg_iters", [3, 100])
 def test_pcg_frozen_steps_equal_while_loop(cg_iters):
     """The device-side stop (all steps issued, step length 0 once the test
-    fails) gives the while loop's x bit for bit, whether the cap (3 steps)
-    or the tolerance ends it; the port's PCG solve agrees with the
-    reference's to 1e-4 relative."""
+    fails) gives the while loop's x bit for bit and counts its iterations
+    as the live steps, whether the cap (3 steps) or the tolerance ends it;
+    the port's PCG solve agrees with the reference's to 1e-4 relative."""
     g = _random_graph("full")
     tg, jg = _tgraph(g), _jgraph(g)
     B, gv = tpg._edge_blocks(tg.poses, tg)
@@ -226,12 +226,13 @@ def test_pcg_frozen_steps_equal_while_loop(cg_iters):
         x = x * gm
         return tpg._hx_local(B, tg.edge_i, tg.edge_j, x) * gm + 1e-6 * x
 
-    x = tpg._pcg(matvec, b * gm, Minv, cg_iters, 1e-8)
+    x, live = tpg._pcg(matvec, b * gm, Minv, cg_iters, 1e-8)
     x_ref, steps = _pcg_while(matvec, b * gm, Minv, cg_iters, 1e-8)
     assert steps == 3 if cg_iters == 3 else 3 < steps < cg_iters
     assert torch.equal(x, x_ref)
-    x_solve = tpg._solve_pcg(N_NODES, tg, B, gv, tpg.PoseGraphConfig(cg_iters=cg_iters))
-    assert torch.equal(x_solve, x)
+    assert live.dtype == torch.int32 and int(live) == steps
+    x_solve, live_solve = tpg._solve_pcg(N_NODES, tg, B, gv, tpg.PoseGraphConfig(cg_iters=cg_iters))
+    assert torch.equal(x_solve, x) and int(live_solve) == steps
     Bj, gj = jpg._edge_blocks(jg.poses, jg)
     xj = jpg._solve_pcg(N_NODES, jg, Bj, gj, jpg.PoseGraphConfig(cg_iters=cg_iters), None)
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-4 * float(x.abs().max()))
@@ -272,7 +273,7 @@ def test_pad_graph_keeps_real_nodes_and_dense_matches_pcg():
     np.testing.assert_allclose(float(pad.final_cost), float(plain.final_cost), rtol=1e-6)
     B, gv = tpg._edge_blocks(tg.poses, tg)
     dense = tpg._solve_dense(N_NODES, tg, B, gv, 1e-6)
-    pcg = tpg._solve_pcg(N_NODES, tg, B, gv, tpg.PoseGraphConfig(cg_iters=500, cg_tol=1e-14))
+    pcg, _ = tpg._solve_pcg(N_NODES, tg, B, gv, tpg.PoseGraphConfig(cg_iters=500, cg_tol=1e-14))
     np.testing.assert_allclose(dense.numpy(), pcg.numpy(), atol=1e-4 * float(dense.abs().max()))
     Bj, gj = jpg._edge_blocks(_jgraph(g).poses, _jgraph(g))
     np.testing.assert_allclose(dense.numpy(), np.asarray(jpg._solve_dense(N_NODES, _jgraph(g), Bj, gj, 1e-6)),

@@ -173,7 +173,10 @@ def test_run_experiment_writes_plot_debug_images_and_trace(ingest, runs):
     assert names == ["keypoints_00000.png", "marker_corners_00000.png", "marker_corners_00010.png",
                      "match_00000.png", "match_00010.png"]
     assert all(os.path.getsize(w) > 0 for w in written)
-    assert os.path.getsize(d / "prof" / profiling.TRACE_FILE) > 0
+    with open(d / "prof" / profiling.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    ours = {e["name"] for e in events if e.get("cat") == "recorder"}  # the recorder's spans beside the profiler's
+    assert {"pipeline.run_experiment", "vo.run", "pipeline.metrics"} <= ours
 
 
 def test_run_experiment_from_config_equals_flags(ingest, capsys):

@@ -220,8 +220,9 @@ def test_sharded_bodies_have_no_host_read(ranks):
     ranks, and gave the entry point's result."""
     for r in ranks:
         torch.testing.assert_close(r["gm_pair_vo_guarded"], r["gm_shard_pair_vo"], rtol=0, atol=0)
-        poses, cost = r["gm_gn_step_guarded"]
+        poses, cost, live = r["gm_gn_step_guarded"]
         assert poses.shape == (16, 4, 4) and bool(torch.isfinite(poses).all()) and bool(torch.isfinite(cost))
+        assert live.dtype == torch.int32 and 0 <= int(live) <= 100
         _equal_dicts(r["gm_ba_guarded"], r["gm_ba"])
 
 
