@@ -14,11 +14,12 @@ streaming path, where whole-sequence frames never exist on the device).
 Spans (utils/profiling): `refine.pose_graph` around pose_graph_trajectory,
 holding `refine.keyframes` (selection and bridge pairs, count
 `keyframes`), `refine.fetch` (the keyframes' gather, copy and remap; a
-streamed fetch holds `refine.gather` and `refine.upload`, see pipeline),
+streamed fetch holds a `refine.gather` and a `refine.upload` per staging
+block and counts `frames`, `blocks` and `pinned`, see pipeline.HostFetcher),
 `refine.features` (the keyframe frontend), loop closure's `loop.*`,
 `refine.graph` (the loop graph and its padding), `pg.optimize` (the GN
 replays and the result's fetch) and `refine.reanchor`; `refine.ba`
-around refine_trajectory.
+around refine_trajectory, holding its own `refine.fetch`.
 """
 
 from __future__ import annotations
@@ -137,7 +138,10 @@ def refine_trajectory(
     if len(kf_idx) < 3:
         return abs_poses.copy(), info
 
-    feats = detect_and_describe_batch(_frame_fetcher(frames)(kf_idx), k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    with profiling.span("refine.fetch"):
+        kf_frames = _frame_fetcher(frames)(kf_idx)
+    feats = detect_and_describe_batch(kf_frames, k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+    del kf_frames
     matches = tracks.match_consecutive(feats)
     dev = feats.xy.device
     Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)

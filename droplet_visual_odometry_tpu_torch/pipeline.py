@@ -25,6 +25,8 @@ program, in memory or chunked), `vo.fetch` (the trajectory's host copy),
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,6 +50,12 @@ BACKENDS = ("none", "pose_graph", "ba")
 # Sequences whose frames exceed this many bytes as float32 stream by default
 # (346 frames at 1440x1080).
 STREAM_BYTES = 2 << 30
+# A streamed keyframe fetch stages its host gathers in two page-locked blocks
+# of this many bytes of raw frames (43 frames of 1440x1080 uint8), each
+# gathered by up to this many host threads (8 copy 25 GB/s into pinned pages
+# on an H100 machine's host; one copies 5.5).
+FETCH_BLOCK_BYTES = 64 << 20
+GATHER_THREADS = 8
 
 
 @dataclasses.dataclass
@@ -159,8 +167,8 @@ def run_experiment(
                 )
         if stream:
             # The backends take the frames or a fetcher: here keyframes cross to
-            # the device as a host gather.
-            frames = _host_fetcher(seq.frames, preprocess, dev)
+            # the device in blocks of a host gather.
+            frames = HostFetcher(seq.frames, preprocess, dev)
         else:
             with profiling.span("vo.fetch"):
                 traj = VOTrajectory(*(t.cpu().numpy() for t in traj))
@@ -220,16 +228,80 @@ def _ransac_counts(traj: VOTrajectory, cfg: VOConfig) -> dict[str, int]:
                 matches=int(np.sum(traj.n_matches)), inliers=int(np.sum(traj.n_inliers)))
 
 
-def _host_fetcher(host_frames, preprocess, dev):
-    """idx -> the frames at idx, gathered on the host (`refine.gather`),
-    then copied to `dev` and remapped there (`refine.upload`, with its
-    device interval)."""
-    def fetch(idx):
-        with profiling.span("refine.gather"):
-            raw = host_frames[np.asarray(idx)]
-        with profiling.span("refine.upload", device=dev):
-            return preprocess(raw)
-    return fetch
+class HostFetcher:
+    """idx -> preprocess(host_frames[idx]) on `dev`, bit for bit, a block at
+    a time: the streamed backends' keyframe fetch.
+
+    The frames at idx are taken in blocks of `block` frames (FETCH_BLOCK_BYTES
+    of raw frames). Each block is gathered on the host straight into one of
+    two staging blocks (page-locked on a CUDA device; made at the first
+    fetch and kept, so pinned host memory stays at two blocks whatever the
+    keyframe count), copied to `dev` asynchronously and remapped there into
+    its rows of the (K, H, W) result. So the host gathers block j + 1 while
+    the card copies block j; a staging block is refilled once its last copy
+    has ended. An ndarray source (np.memmap too) is gathered in runs of rows
+    split over up to GATHER_THREADS host threads; any other host array-like
+    (StoreFrames) through its own indexing.
+
+    Spans: per block `refine.gather` (the host gather and the wait for its
+    staging block; count `frames`) and `refine.upload` (the copy and remap,
+    with their device interval); the enclosing span (`refine.fetch`) gets
+    the counts `frames`, `blocks` and `pinned` (1 for page-locked blocks).
+    """
+
+    def __init__(self, host_frames, preprocess, dev):
+        self.frames, self.preprocess, self.dev = host_frames, preprocess, torch.device(dev)
+        self.pinned = self.dev.type == "cuda"
+        self.shape = tuple(host_frames.shape[1:])
+        dtype = np.dtype(host_frames.dtype)
+        self.dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        self.block = max(1, FETCH_BLOCK_BYTES // (int(np.prod(self.shape)) * dtype.itemsize))
+        self.threads = min(GATHER_THREADS, os.cpu_count() or 1)
+        self.staging: list[torch.Tensor] = []
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()] if self.pinned else []
+
+    def __call__(self, idx) -> torch.Tensor:
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        n = int(self.frames.shape[0])
+        if idx.size and not (-n <= idx.min() and idx.max() < n):
+            raise IndexError(f"frame index out of range for {n} frames")
+        idx = np.where(idx < 0, idx + n, idx)
+        if not self.staging:
+            self.staging = [torch.empty((self.block,) + self.shape, dtype=self.dtype, pin_memory=self.pinned)
+                            for _ in range(2)]
+        out = None
+        starts = range(0, len(idx), self.block)
+        with ThreadPoolExecutor(self.threads) as pool:
+            for j, a in enumerate(starts):
+                rows = idx[a : a + self.block]
+                buf = self.staging[j % 2][: len(rows)]
+                with profiling.span("refine.gather", frames=len(rows)):
+                    if self.pinned:
+                        self.copied[j % 2].synchronize()  # the block's previous copy has ended
+                    _gather(self.frames, rows, buf.numpy(), pool, self.threads)
+                with profiling.span("refine.upload", device=self.dev):
+                    raw = buf.to(self.dev, non_blocking=True)
+                    if self.pinned:
+                        self.copied[j % 2].record(torch.cuda.current_stream(self.dev))
+                    y = self.preprocess(raw)
+                    if out is None:
+                        out = torch.empty((len(idx),) + tuple(y.shape[1:]), dtype=y.dtype, device=y.device)
+                    out[a : a + len(rows)] = y
+        profiling.current().set(frames=len(idx), blocks=len(starts), pinned=int(self.pinned))
+        return out if out is not None else self.preprocess(np.empty((0,) + self.shape, self.frames.dtype))
+
+
+def _gather(src, rows: np.ndarray, out: np.ndarray, pool: ThreadPoolExecutor, threads: int) -> None:
+    """out[k] = src[rows[k]] for in-range rows: an ndarray source in runs of
+    rows split over `threads` of the pool's threads (np.take releases the
+    GIL), any other through its own indexing."""
+    if not isinstance(src, np.ndarray):
+        out[...] = src[rows]
+        return
+    cuts = np.linspace(0, len(rows), min(threads, len(rows)) + 1).astype(int)
+    parts = [pool.submit(np.take, src, rows[lo:hi], 0, out[lo:hi], "clip") for lo, hi in zip(cuts[:-1], cuts[1:])]
+    for f in parts:
+        f.result()
 
 
 def dump_match_images(

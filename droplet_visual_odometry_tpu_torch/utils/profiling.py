@@ -4,6 +4,7 @@ path, plus the stage timer and torch.profiler capture of the tools.
     with profiling.span("loop.verify", device=dev, slots=n) as s:
         ...
         s.set(accepted=k)            # a count, host int or device tensor
+        profiling.current().set(...) # the same, from code the span encloses
     records = profiling.snapshot(t0, t1)
 
 A span records its name, `time.perf_counter()` at open and close, the
@@ -183,6 +184,11 @@ class Recorder:
             st = self._local.stack = []
         return st
 
+    def current(self) -> Record | _Noop:
+        """The innermost span open on this thread (NOOP when there is none)."""
+        st = self._stack() if self.enabled else None
+        return st[-1] if st else NOOP
+
     def _events(self, device: torch.device):
         """Two timing events from the pool, the first recorded now on the
         device's current stream; None while it is capturing."""
@@ -318,6 +324,12 @@ def span(name: str, device=None, **attrs):
     """A span of the program's recorder: `with span(...) as rec:` or
     `@span(...)`. `device`: a CUDA device gives the span a device interval."""
     return RECORDER.span(name, device, **attrs)
+
+
+def current() -> Record | _Noop:
+    """The innermost open span of the program's recorder on this thread:
+    `current().set(...)` adds counts to the span a caller opened."""
+    return RECORDER.current()
 
 
 def device_stage(name: str, **attrs):

@@ -236,7 +236,9 @@ def test_trace_carries_the_recorders_spans(tmp_path):
 # -- the shipped path's spans ------------------------------------------------------
 
 @pytest.mark.parametrize("backend,stream", [("none", False), ("pose_graph", False), ("pose_graph", True)])
-def test_run_experiment_records_its_span_tree(seq, tmp_path, backend, stream):
+def test_run_experiment_records_its_span_tree(seq, tmp_path, monkeypatch, backend, stream):
+    block = 5  # keyframes a staging block of the streamed fetch holds
+    monkeypatch.setattr(pipeline, "FETCH_BLOCK_BYTES", block * CLIP["width"] * CLIP["height"])
     t0 = time.perf_counter()
     res = pipeline.run_experiment(seq, VO_CFG, out_dir=str(tmp_path), backend=backend,
                                   refine_cfg=PG_CFG if backend == "pose_graph" else None, stream=stream,
@@ -270,7 +272,15 @@ def test_run_experiment_records_its_span_tree(seq, tmp_path, backend, stream):
         assert {r.name for r in kids[pg.seq]} == BACKEND_SPANS
         assert res.backend_info["n_loop_edges"] > 0
         fetch = next(r for r in kids[pg.seq] if r.name == "refine.fetch")
-        assert [r.name for r in kids.get(fetch.seq, [])] == (["refine.gather", "refine.upload"] if stream else [])
+        n_kf = next(r for r in kids[pg.seq] if r.name == "refine.keyframes").attrs["keyframes"]
+        n_blocks = -(-n_kf // block)
+        if stream:  # a gather and an upload per staging block
+            assert n_blocks > 1 and fetch.attrs == dict(frames=n_kf, blocks=n_blocks, pinned=0)
+            assert [r.name for r in kids[fetch.seq]] == ["refine.gather", "refine.upload"] * n_blocks
+            gathers = [r.attrs["frames"] for r in kids[fetch.seq] if r.name == "refine.gather"]
+            assert sum(gathers) == n_kf and max(gathers) == block
+        else:
+            assert fetch.seq not in kids and fetch.attrs == {}
         steps = kids[next(r for r in kids[pg.seq] if r.name == "pg.optimize").seq]
         assert [r.name for r in steps] == ["pg.step"] * PG_CFG.pg.iters
         assert all(0 < r.attrs["live_iters"] <= PG_CFG.pg.cg_iters for r in steps)
