@@ -19,7 +19,15 @@ block and counts `frames`, `blocks` and `pinned`, see pipeline.HostFetcher),
 `refine.features` (the keyframe frontend), loop closure's `loop.*`,
 `refine.graph` (the loop graph and its padding), `pg.optimize` (the GN
 replays and the result's fetch) and `refine.reanchor`; `refine.ba`
-around refine_trajectory, holding its own `refine.fetch`.
+around refine_trajectory, holding `refine.keyframes` (count
+`keyframes`), its own `refine.fetch`, `refine.features` (the keyframe
+frontend and the consecutive match, with its device interval), one
+`ba.window` per window walked (counts `keyframes`, `tracks` over
+min_views, `observations` in the BA mask, `skipped`, `accepted`) and
+`refine.reanchor`. A window holds `ba.tracks` (build, triangulate,
+filter and the track count's read-back), and unless skipped `ba.solve`
+(the run_ba replay and its read-back, with its device interval) and
+`ba.gate`.
 """
 
 from __future__ import annotations
@@ -59,6 +67,16 @@ def reanchor_segments(abs_poses: np.ndarray, kf_idx: np.ndarray, refined_kf: np.
         for i in range(k0 + 1, k1):
             refined[i] = abs_poses[i] @ corr
     return refined
+
+
+# The windowed BA's geometry (triangulation, the reprojection filter and the
+# LM loop) runs in float64. Where a window's keyframes nearly coincide (a
+# hover or a turn, keyframes then forced by max_gap millimetres apart) its
+# scale and its landmarks' depths are barely observable, and a float32 solve
+# lands anywhere along that valley: centimetres apart between the captured
+# graph and the op-by-op run of one window, tens of centimetres along a
+# chain of windows. ORB-SLAM2's local BA (g2o) is double too.
+BA_DTYPE = torch.float64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,18 +151,21 @@ def refine_trajectory(
     reference's keys).
     """
     abs_poses = np.asarray(abs_poses, np.float64)
-    kf_idx = np.where(keyframes.select_keyframes(abs_poses, np.asarray(n_inliers), cfg.kf))[0]
+    with profiling.span("refine.keyframes") as rec:
+        kf_idx = np.where(keyframes.select_keyframes(abs_poses, np.asarray(n_inliers), cfg.kf))[0]
+        rec.set(keyframes=len(kf_idx))
     info: dict = {"n_keyframes": len(kf_idx), "windows": 0, "rms_px": []}
     if len(kf_idx) < 3:
         return abs_poses.copy(), info
 
     with profiling.span("refine.fetch"):
         kf_frames = _frame_fetcher(frames)(kf_idx)
-    feats = detect_and_describe_batch(kf_frames, k=cfg.n_keypoints, threshold=cfg.fast_threshold)
-    del kf_frames
-    matches = tracks.match_consecutive(feats)
+    with profiling.span("refine.features", device=kf_frames.device):
+        feats = detect_and_describe_batch(kf_frames, k=cfg.n_keypoints, threshold=cfg.fast_threshold)
+        del kf_frames
+        matches = tracks.match_consecutive(feats)
     dev = feats.xy.device
-    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
+    Kt = torch.as_tensor(np.asarray(K), dtype=BA_DTYPE, device=dev)
     K_np = np.asarray(K, np.float64)
     refined_kf = abs_poses[kf_idx].copy()  # cTw with world = the marker frame
     W = min(cfg.window, len(kf_idx))
@@ -153,36 +174,47 @@ def refine_trajectory(
     while start < len(kf_idx) - 2:
         end = min(start + W, len(kf_idx))
         sl = slice(start, end)
-        poses0 = torch.as_tensor(refined_kf[sl], dtype=torch.float32, device=dev)
-        grid = tracks.build_tracks(Features(*(a[sl] for a in feats)), Matches(*(a[start : end - 1] for a in matches)))
-        X, valid = tracks.triangulate_tracks(grid, poses0, Kt, min_views=cfg.min_views)
-        grid = tracks.filter_by_reprojection(grid, X, poses0, Kt, cfg.reproj_filter_px, cfg.min_views)
-        mask = grid.obs_mask & valid[None, :]
-        if int(torch.sum(torch.sum(mask, 0) >= cfg.min_views)) < 12:
-            start += W - 2
-            continue
+        with profiling.span("ba.window", keyframes=end - start) as win:
+            with profiling.span("ba.tracks"):
+                poses0 = torch.as_tensor(refined_kf[sl], dtype=BA_DTYPE, device=dev)
+                grid = tracks.build_tracks(Features(*(a[sl] for a in feats)),
+                                           Matches(*(a[start : end - 1] for a in matches)))
+                grid = grid._replace(obs_uv=grid.obs_uv.to(BA_DTYPE))
+                X, valid = tracks.triangulate_tracks(grid, poses0, Kt, min_views=cfg.min_views)
+                grid = tracks.filter_by_reprojection(grid, X, poses0, Kt, cfg.reproj_filter_px, cfg.min_views)
+                mask = grid.obs_mask & valid[None, :]
+                n_tracks = int(torch.sum(torch.sum(mask, 0) >= cfg.min_views))
+            win.set(tracks=n_tracks, observations=torch.sum(mask), skipped=int(n_tracks < 12), accepted=0)
+            if n_tracks < 12:
+                start += W - 2
+                continue
 
-        res = ba.run_ba(ba.BAWindow(poses=poses0, points=X, obs_uv=grid.obs_uv, obs_mask=mask, K=Kt), cfg.ba)
-        new_poses = res.poses.cpu().numpy().astype(np.float64)
-        old_poses = refined_kf[sl]
-        final_cost = float(res.final_cost)
-        cost_ok = final_cost <= float(res.initial_cost) and np.isfinite(final_cost)
-        m_before = m_after = None
-        if marker_corners is not None and real_marker_length is not None:
-            obs = np.asarray(marker_corners, np.float64)[kf_idx[sl]]
-            m_before = _marker_reproj_err(old_poses, K_np, obs, real_marker_length)
-            m_after = _marker_reproj_err(new_poses, K_np, obs, real_marker_length)
-        accept, rec = _gate(new_poses, old_poses, cost_ok, m_before, m_after, cfg)
-        rec["accepted"] = accept
-        info.setdefault("window_corr", []).append(rec)
-        if accept:
-            refined_kf[sl] = new_poses
-            info["rms_px"].append(float(res.rms_px))
-        info["windows"] += 1
+            with profiling.span("ba.solve", device=dev):
+                res = ba.run_ba(ba.BAWindow(poses=poses0, points=X, obs_uv=grid.obs_uv, obs_mask=mask, K=Kt), cfg.ba)
+                new_poses = res.poses.cpu().numpy().astype(np.float64)
+                final_cost = float(res.final_cost)
+                initial_cost = float(res.initial_cost)
+            with profiling.span("ba.gate"):
+                old_poses = refined_kf[sl]
+                cost_ok = final_cost <= initial_cost and np.isfinite(final_cost)
+                m_before = m_after = None
+                if marker_corners is not None and real_marker_length is not None:
+                    obs = np.asarray(marker_corners, np.float64)[kf_idx[sl]]
+                    m_before = _marker_reproj_err(old_poses, K_np, obs, real_marker_length)
+                    m_after = _marker_reproj_err(new_poses, K_np, obs, real_marker_length)
+                accept, rec = _gate(new_poses, old_poses, cost_ok, m_before, m_after, cfg)
+                rec["accepted"] = accept
+                info.setdefault("window_corr", []).append(rec)
+                if accept:
+                    refined_kf[sl] = new_poses
+                    info["rms_px"].append(float(res.rms_px))
+                info["windows"] += 1
+            win.set(accepted=int(accept))
         # Overlap the next window by the two fixed (anchor) keyframes.
         start += max(W - 2, 1)
 
-    return reanchor_segments(abs_poses, kf_idx, refined_kf), info
+    with profiling.span("refine.reanchor"):
+        return reanchor_segments(abs_poses, kf_idx, refined_kf), info
 
 
 @dataclasses.dataclass(frozen=True)

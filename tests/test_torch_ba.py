@@ -201,11 +201,15 @@ def _accepted(info):
     return [i for i, r in enumerate(info.get("window_corr", [])) if r["accepted"]]
 
 
-def test_refine_trajectory_agrees(loop_seqs, jax_ba_run):
-    """The reference run's VO outputs into both backends: keyframes, windows
-    run, the list of accepted windows and which gate decided each equal; RMS
-    to 1e-3 px; the gates' figures to 0.02 (px, deg or fraction); refined
-    poses to 2e-3 (measured 5.8e-4)."""
+def test_refine_trajectory_agrees(loop_seqs, jax_ba_run, monkeypatch):
+    """The reference run's VO outputs into both backends, the port's BA
+    geometry at the reference's float32 (refine.BA_DTYPE; the main path's
+    float64 is held against the plain float64 LM in
+    test_torch_ba_reference.py): keyframes, windows run, the list of
+    accepted windows and which gate decided each equal; RMS to 1e-3 px; the
+    gates' figures to 0.02 (px, deg or fraction); refined poses to 2e-3
+    (measured 5.8e-4)."""
+    monkeypatch.setattr(trefine, "BA_DTYPE", torch.float32)
     j, t = loop_seqs
     traj = jax_ba_run.trajectory
     args = (np.asarray(traj.abs_poses, np.float64), np.asarray(traj.n_inliers))

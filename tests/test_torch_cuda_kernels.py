@@ -174,7 +174,7 @@ def _match_args(da, db, va, vb, device):
     "p,k,ties",
     [(3, 100, True), (3, 512, False), (3, 512, True), (3, 2048, False), (3, 2048, True),
      (3, 1, False), (3, 100, False), (3, 4096, False), (3, 4096, True),
-     (1, 512, True), (64, 512, False), (64, 512, True)],
+     (1, 512, True), (64, 512, False), (64, 512, True), (3, 1000, False), (3, 1000, True), (400, 1000, False)],
 )
 def test_match_reductions_kernel_equals_plain(cuda_device, p, k, ties):
     """Integer distances and lowest-index ties on both sides: exact equality
@@ -312,6 +312,29 @@ def test_detect_and_describe_public_functions_on_cuda(cuda_device, batch):
     assert words.shape == (512, orb.N_WORDS) and words.device.type == "cuda"
     ref_words, ref_ang = cuda_describe.describe_plain(blur[None], orb.patch_origins(one.xy[None], 480, 640))
     assert torch.equal(words, ref_words) and torch.equal(ang, ref_ang)
+
+
+# The euroc_mav_752 configuration's VO pyramid: 752x480 at 8 levels of 1.2,
+# down to 210x134, with K = 1000 split over the levels.
+EUROC_LEVELS = list(zip(features.level_shapes(480, 752, 8, 1.2), features.level_budgets(1000, 8, 1.2)))
+
+
+@pytest.mark.parametrize("hw,k", EUROC_LEVELS)
+def test_kernels_at_the_euroc_pyramid_levels(cuda_device, hw, k):
+    """FAST and the fused describe at each level of the 8-level pyramid,
+    with that level's keypoint budget, against their plain twins on the
+    same card: scores bit for bit, descriptor words and angles equal."""
+    from droplet_visual_odometry_tpu_torch.frontend import fast, filters
+
+    h, w = hw
+    imgs = _images(3, h, w, seed=h * w).to(cuda_device)
+    score = cuda_fast.fast_score_cuda(imgs, 20.0, 9)
+    assert torch.equal(score, cuda_fast.fast_score_plain(imgs, 20.0, 9))
+    kps = fast.select_topk_rows(fast.nms3x3(score), k)
+    blur = filters.gaussian_blur(imgs, 2.0, 4, compute_dtype=torch.bfloat16).contiguous()
+    words, ang = orb.describe_batch(blur, kps.xy)
+    ref_words, ref_ang = cuda_describe.describe_plain(blur.to(torch.float32), orb.patch_origins(kps.xy, h, w))
+    assert torch.equal(words.reshape(-1, orb.N_WORDS), ref_words) and torch.equal(ang.reshape(-1), ref_ang)
 
 
 @pytest.mark.parametrize("p", [64, 128])
