@@ -41,10 +41,16 @@ Phases (any failure raises, so the exit code is non-zero):
      the ATE against the JAX package's; then the kernels at the new shapes
      (FAST and describe on the keyframe stack at k=1024, the match on the
      real retrieval and verification sets at K=1024, each exact against its
-     twin and timed beside its bound), the PCG loop's stop forms (the stop
-     test on the device, as the captured program and op by op, vs read on
-     the host each step, op by op only) timed on the run's graph, and the
-     warm wall of pose_graph_trajectory;
+     twin and timed beside its bound), the PCG kernel on the first GN
+     step's system of the run's padded graph (pcg_case: against its plain
+     twin captured as one CUDA graph and against float64, beside its bound,
+     with the float64 loop's error when an edge is dropped from its
+     product or the gauge is left free, which the held tolerance must
+     catch), the PCG's forms (the kernel inside the captured GN step, the
+     op-by-op loop with the stop test on the device, and with it read on
+     the host each step) timed on the run's graph, the PCG kernel on the
+     stream cell's graph (the loop cycled to 513 frames, ten laps, run in
+     memory; pcg_case), and the warm wall of pose_graph_trajectory;
   6. backend "ba", run_experiment(backend="ba") with VOConfig(scale_mode=
      "hold") and the default RefineConfig on the same loop: launch counters
      (FAST and describe once per level on the frames and again on the
@@ -64,7 +70,8 @@ Phases (any failure raises, so the exit code is non-zero):
      resumed against the uninterrupted one, the ATE against the JAX package's
      streamed run; per-chunk walls and peak device memory, one chunk's
      store read, host-to-device copy and compute, the warm streamed VO
-     frames/s, and the kernels at the chunk shapes against their twins;
+     frames/s, and the kernels at the chunk shapes against their twins,
+     the PCG kernel on the streamed run's own pose graph (pcg_case);
   7a. the JAX package's compiled programs as CUDA graphs (phase G,
      utils/graphs.py): run_sequence on the bench workload (24 frames) and on
      the stream cell's first chunk (257 frames), each replay bit for bit
@@ -197,6 +204,7 @@ repository beside it, it fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -269,6 +277,7 @@ JAX_BA_ATE_RMSE = 0.048091
 BA_ATE_TOL = 0.0687
 STREAM_FRAMES = 400
 STREAM_CHUNK = 256
+STREAM_CELL_FRAMES = 513  # the benchmark's stream cell: the 48-frame loop cycled over ten laps
 JAX_STREAM_ATE_RMSE = 0.0029075
 STREAM_ATE_TOL = 0.0032
 JAX_STREAM_N_MATCHES = 124496
@@ -286,6 +295,12 @@ INGEST_SMALL_FRAMES = 8
 INGEST_SMALL_ENCODINGS = ("mono8", "mono8", "rgb8", "mono8", "bgr8", "mono8", "mono8", "rgb8")
 POSE_ROUND_TRIP_TOL = 1e-6
 RESUME_POSE_TOL = 1e-4
+# The PCG kernel's x against the float64 loop on a run's first GN step, as a
+# share of max |x|: 100 CG steps that have not converged amplify f32
+# rounding (the f32 plain loop lies up to 1.5e-4 from float64 on the test
+# chains of tests/test_torch_cuda_kernels.py), and pcg_case checks that an
+# edge dropped from the product or a free gauge lands further away.
+PCG_TOL = 1e-3
 # A captured program's kernels tick their counters twice when it is captured
 # (the warm-up run and the capture) and never on a replay (utils/graphs.py).
 CAPTURE_TICKS = 2
@@ -354,6 +369,7 @@ REPLACES = {
     "fast_score": "droplet_visual_odometry_tpu/ops/pallas_fast.py:193",
     "orb_describe": "droplet_visual_odometry_tpu/ops/pallas_patches.py:103",
     "hamming_match": "droplet_visual_odometry_tpu/ops/pallas_match.py:105",
+    "pose_graph_pcg": "none: the CG loop of droplet_visual_odometry_tpu/backend/pose_graph.py:143, XLA ops",
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s,
@@ -823,10 +839,10 @@ def phase_loop_data():
 
 def pcg_host_stop(matvec, b, Minv, iters: int, tol: float) -> torch.Tensor:
     """The reference's PCG loop (pose_graph.py:143-172) with its stop test
-    read on the host every step: the other form of backend/pose_graph._pcg,
+    read on the host every step: the other form of ops/cuda_pcg.pcg,
     which issues all iters steps and sets the step length to 0 on the
     device once the test fails. Counts its steps in PCG_STEPS and returns
-    them beside x, as `_pcg` returns its live steps."""
+    them beside x, as `pcg` returns its live steps."""
     apply_minv = lambda r: torch.einsum("mab,mb->ma", Minv, r)
     x, r = torch.zeros_like(b), b
     z = apply_minv(r)
@@ -849,6 +865,103 @@ def pcg_host_stop(matvec, b, Minv, iters: int, tol: float) -> torch.Tensor:
 
 
 PCG_STEPS: list[int] = []
+
+
+@contextlib.contextmanager
+def recording_optimize():
+    """Within: pose_graph.optimize appends each graph it is given (as the
+    caller padded it) to the list this yields."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+
+    seen, optimize = [], pose_graph.optimize
+
+    def recording(graph, *args, **kwargs):
+        seen.append(graph)
+        return optimize(graph, *args, **kwargs)
+
+    pose_graph.optimize = recording
+    try:
+        yield seen
+    finally:
+        pose_graph.optimize = optimize
+
+
+def cycled(seq, n: int):
+    """A closed loop's sequence cycled over its frames 0 .. len - 2 to n
+    frames, as the benchmark cycles its clip for the stream cell (the last
+    frame sits at the first one's pose, so no step teleports)."""
+    idx = np.arange(n) % (len(seq) - 1)
+    dt = float(seq.timestamps[1] - seq.timestamps[0])
+    per_frame = {f: getattr(seq, f)[idx] for f in ("frames", "marker_corners", "marker_poses", "marker_present",
+                                                   "marker_ids", "gt_poses") if getattr(seq, f) is not None}
+    return dataclasses.replace(seq, timestamps=seq.timestamps[0] + dt * np.arange(n), **per_frame)
+
+
+def pcg_case(label: str, graph, pg_cfg) -> dict:
+    """The PCG kernel on the first GN step's system (B, b, M^-1, as
+    pose_graph._solve_pcg builds them) of a run's padded graph: its device
+    time (device_ms) and one call with its launch (call_ms) against its
+    plain twin, pcg_plain's op-by-op loop captured as one CUDA graph
+    (utils/graphs.py), beside its bound (the inputs read once and x written
+    at 3.35 TB/s, or 90 FLOPs an edge and 160 a node per live iteration at
+    the f32 rate). Holds x within PCG_TOL of max |x| of the float64 loop,
+    the kernel's and the f32 plain loop's live counts equal to float64's,
+    and shows the tolerance has teeth: the float64 loop with its strongest
+    real edge dropped from the product, or with the gauge left free in the
+    product, lands further than PCG_TOL from it."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.ops import cuda_pcg
+    from droplet_visual_odometry_tpu_torch.utils import graphs
+
+    M, E = int(graph.poses.shape[0]), int(graph.edge_i.shape[0])
+    ei, ej = graph.edge_i.contiguous(), graph.edge_j.contiguous()
+    B, g = pose_graph._edge_blocks(graph.poses, graph)
+    b, Minv = pose_graph._pcg_system(M, graph, B, g, pg_cfg.damping)
+    B = B.contiguous()
+    args = (pg_cfg.damping, pg_cfg.cg_iters, pg_cfg.cg_tol)
+    system = (B, ei, ej, b, Minv)
+    x, live = cuda_pcg.pcg_cuda(*system, *args)
+    x_plain, live_plain = cuda_pcg.pcg_plain(*system, *args)
+    B64, b64, Minv64 = B.double(), b.double(), Minv.double()
+    x64, live64 = cuda_pcg.pcg_plain(B64, ei, ej, b64, Minv64, *args)
+    scale = float(x64.abs().max())
+    rel = lambda u: float((u.double() - x64).abs().max()) / scale
+    real = ei != ej
+    strongest = int(torch.argmax(B64.abs().flatten(1).sum(1) * real))
+    B_drop = B64.clone()
+    B_drop[strongest] = 0.0
+    x_drop, _ = cuda_pcg.pcg(cuda_pcg.matvec_local(B_drop, ei, ej, pg_cfg.damping, M), b64, Minv64,
+                             pg_cfg.cg_iters, pg_cfg.cg_tol)
+    x_free, _ = cuda_pcg.pcg(lambda v: cuda_pcg.hx_local(B64, ei, ej, v) + pg_cfg.damping * v, b64, Minv64,
+                             pg_cfg.cg_iters, pg_cfg.cg_tol)
+    case = dict(nodes=int(torch.unique(torch.cat([ei[real], ej[real]])).numel()), edges=int(real.sum()),
+                bucket=[M, E], blocks=list(cuda_pcg.plan(M, E)),
+                live=int(live), live_plain=int(live_plain), live_f64=int(live64),
+                err_f64=rel(x), err_plain_f64=rel(x_plain), err_kernel_plain=float((x - x_plain).abs().max()) / float(x_plain.abs().max()),
+                err_dropped_edge=rel(x_drop), err_free_gauge=rel(x_free))
+    repeat = cuda_pcg.pcg_cuda(*system, *args)
+    case["repeats_bit_for_bit"] = bool(torch.equal(repeat[0], x) and torch.equal(repeat[1], live))
+    plain_body = lambda *t: cuda_pcg.pcg_plain(*t, *args)
+    case["ms"] = device_ms(lambda: cuda_pcg.pcg_cuda(*system, *args))
+    case["call_ms"] = call_ms(lambda: cuda_pcg.pcg_cuda(*system, *args))
+    case["plain_ms"] = device_ms(lambda: graphs.run("pcg_plain_alone", plain_body, system, args, B.device), reps=5)
+    case["us_per_iter"] = case["ms"] * 1e3 / max(int(live), 1)
+    bytes_moved = sum(t.numel() * t.element_size() for t in system) + x.numel() * 4 + 4
+    b_ms, by, by_ms, op_ms = bound(bytes_moved, int(live) * (90 * E + 160 * M), F32_OPS_PER_S)
+    case.update(bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms, share=b_ms / case["ms"])
+    log(f"pcg {label}: {case['nodes']} nodes, {case['edges']} real edges in the bucket {M}x{E} on "
+        f"{case['blocks'][0]} block(s) of {case['blocks'][1]} warps; kernel {case['ms']:.4f} ms "
+        f"({case['us_per_iter']:.2f} us an iteration, one call {case['call_ms']:.4f} ms), plain loop captured "
+        f"{case['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({by}); live {case['live']}/{case['live_plain']}/"
+        f"{case['live_f64']}; x vs float64 {case['err_f64']:.2e} (f32 plain loop {case['err_plain_f64']:.2e}, "
+        f"kernel vs plain {case['err_kernel_plain']:.2e}); float64 with the strongest edge dropped "
+        f"{case['err_dropped_edge']:.2e}, with the gauge free {case['err_free_gauge']:.2e}; tolerance {PCG_TOL}")
+    if not case["repeats_bit_for_bit"] or not case["live"] == case["live_plain"] == case["live_f64"]:
+        raise AssertionError(f"pcg {label}: the kernel's repeat or live counts disagree")
+    if case["err_f64"] > PCG_TOL or min(case["err_dropped_edge"], case["err_free_gauge"]) <= PCG_TOL:
+        raise AssertionError(f"pcg {label}: the kernel lies {case['err_f64']:.2e} from float64, or a mutated "
+                             f"product lies within {PCG_TOL} of it")
+    return case
 
 
 def loop_inputs(seq, res, cfg):
@@ -885,6 +998,7 @@ def phase_pose_graph(seq, results) -> dict:
     from droplet_visual_odometry_tpu_torch.backend import loop_closure, pose_graph, refine
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
+    from droplet_visual_odometry_tpu_torch.ops import cuda_pcg
 
     vo, cfg = VOConfig(scale_mode="hold"), refine.PoseGraphRefineConfig()
     reset_launches()
@@ -904,6 +1018,9 @@ def phase_pose_graph(seq, results) -> dict:
         if launches["hamming_match"] < 2 * CAPTURE_TICKS + 1:
             raise AssertionError(f"expected >= {2 * CAPTURE_TICKS + 1} match launches (captured VO, retrieval, "
                                  f"captured verification), got {launches}")
+        if launches["pose_graph_pcg"] != CAPTURE_TICKS:
+            raise AssertionError(f"expected {CAPTURE_TICKS} PCG launches (the GN step's program, captured once, "
+                                 f"runs its CG in one kernel launch), got {launches}")
         check_run_outputs(res, out_dir, len(seq))
     if info["n_bridge_pairs"] != JAX_PG_BRIDGE_PAIRS:
         raise AssertionError(f"{info['n_bridge_pairs']} bridge pairs, the JAX package has {JAX_PG_BRIDGE_PAIRS}")
@@ -935,7 +1052,7 @@ def phase_pose_graph(seq, results) -> dict:
     results["orb_describe"]["keyframe_stack"] = {k: desc_kf[k] for k in ("ms", "plain_ms", "bound_ms")}
     results["hamming_match"]["loop_closure"] = {"retrieval": retrieval, "verification": verification}
 
-    # The PCG loop's two forms on this run's graph.
+    # The run's pose graph: the PCG kernel alone on its first GN step, then the PCG's forms through optimize.
     edges = loop_closure.find_loop_closures(
         feats, d["vo_abs"][d["kf_idx"]], d["corners"][d["kf_idx"]], seq.marker_present[d["kf_idx"]], d["K"], d["L"],
         vo, lc, extra_pairs=d["extra"])
@@ -943,17 +1060,22 @@ def phase_pose_graph(seq, results) -> dict:
                               d["traj"].scale_ok, "cuda")
     m = int(graph.poses.shape[0])
     graph = pose_graph.pad_graph(graph, pose_graph.next_bucket(m), pose_graph.next_bucket(int(graph.edge_i.shape[0])))
-    # The PCG's stop forms: the device-side stop as the captured program (optimize) and op by op
-    # (optimize_eager), and the host-read stop, which only runs op by op (a graph holds no host read).
-    forms = {"graph": pose_graph._pcg, "device": pose_graph._pcg, "host": pcg_host_stop}
-    calls = {"graph": pose_graph.optimize, "device": pose_graph.optimize_eager, "host": pose_graph.optimize_eager}
+    results["pose_graph_pcg"] = dict(pcg_case("loop run", graph, cfg.pg),
+                                     source="droplet_visual_odometry_tpu_torch/csrc/pose_graph_pcg.cu")
+    # The PCG's forms: the kernel inside the captured GN step (optimize), the op-by-op loop with its stop
+    # on the device (optimize_eager, the kernel path off), and the host-read stop, which only runs op by op.
+    in_kernel, device_pcg = pose_graph._pcg_in_kernel, cuda_pcg.pcg
+    op_by_op = lambda *a, **k: False
+    forms = {"graph": (pose_graph.optimize, in_kernel, device_pcg),
+             "device": (pose_graph.optimize_eager, op_by_op, device_pcg),
+             "host": (pose_graph.optimize_eager, op_by_op, pcg_host_stop)}
 
     def run_form(name, fn):
-        pose_graph._pcg = forms[name]
+        opt, pose_graph._pcg_in_kernel, cuda_pcg.pcg = forms[name]
         try:
-            return fn(calls[name])
+            return fn(opt)
         finally:
-            pose_graph._pcg = forms["device"]
+            pose_graph._pcg_in_kernel, cuda_pcg.pcg = in_kernel, device_pcg
 
     graph_stop = run_form("graph", lambda opt: opt(graph, cfg.pg))
     device_stop = run_form("device", lambda opt: opt(graph, cfg.pg))
@@ -969,13 +1091,21 @@ def phase_pose_graph(seq, results) -> dict:
     pose_dev = max(float((device_stop.poses - host_stop.poses).abs().max()),
                    float((graph_stop.poses - host_stop.poses).abs().max()))
     log(f"PCG optimize on a graph of {m} nodes, {len(edges.i)} loop edges (padded to {tuple(graph.poses.shape)[0]} "
-        f"nodes, {graph.edge_i.shape[0]} edges), {cfg.pg.iters} GN steps: device-side stop ({cfg.pg.cg_iters} CG "
-        f"steps issued) as the captured graph {graph_ms_:.2f} ms (turns {turns['graph']}), op by op "
-        f"{device_ms_:.2f} ms (turns {turns['device']}), host-read stop op by op {host_ms:.2f} ms (turns "
+        f"nodes, {graph.edge_i.shape[0]} edges), {cfg.pg.iters} GN steps: the CG kernel in the captured GN step "
+        f"{graph_ms_:.2f} ms (turns {turns['graph']}), op by op with the stop on the device ({cfg.pg.cg_iters} CG "
+        f"steps issued) {device_ms_:.2f} ms (turns {turns['device']}), host-read stop op by op {host_ms:.2f} ms (turns "
         f"{turns['host']}; CG steps per GN step {steps}); "
         f"final cost {cost_dev!r} vs {cost_host!r}, poses differ by {pose_dev:.2e}")
     if abs(cost_dev - cost_host) > 1e-3 * abs(cost_host) or pose_dev > 1e-4:
         raise AssertionError("the PCG forms disagree")
+
+    # The stream cell's pose graph: this loop cycled to STREAM_CELL_FRAMES frames (ten laps), run in memory.
+    with recording_optimize() as seen:
+        laps = pipeline.run_experiment(cycled(seq, STREAM_CELL_FRAMES), vo, None, SEED, backend="pose_graph",
+                                       stream=False, device="cuda")
+    log(f"{STREAM_CELL_FRAMES} frames, the loop cycled: backend info {json.dumps(laps.backend_info)}")
+    results["pose_graph_pcg"]["ten_laps"] = pcg_case("ten laps", seen[0], cfg.pg)
+    del laps
 
     args = (d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"], seq.marker_present, d["K"], d["L"], vo, cfg)
     kw = dict(pair_scale_ok=d["traj"].scale_ok)
@@ -1055,19 +1185,18 @@ def reset_launches() -> None:
     runs, and its counts show each program's kernels: the counters tick
     where a wrapper's Python runs (a capture's warm-up and the capture
     itself, CAPTURE_TICKS per kernel of the program), never on a replay."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match, cuda_pcg
     from droplet_visual_odometry_tpu_torch.utils import graphs
 
-    for mod in (cuda_fast, cuda_describe, cuda_match):
+    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg):
         mod.LAUNCHES = 0
     graphs.clear()
 
 
 def read_launches() -> dict:
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+    from droplet_visual_odometry_tpu_torch.utils import graphs
 
-    return {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
-            "hamming_match": cuda_match.LAUNCHES}
+    return graphs.launch_counts()
 
 
 def frontend_row(r: dict) -> dict:
@@ -1279,6 +1408,7 @@ def phase_stream(seq, results) -> dict:
     read into the page-locked buffer, host-to-device copy, compute) and the
     warm streamed VO rate."""
     from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.backend import refine
     from droplet_visual_odometry_tpu_torch.data import native_store
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe_batch
@@ -1303,10 +1433,11 @@ def phase_stream(seq, results) -> dict:
             reset_launches()
             ckpt = os.path.join(tmp, "state.npz")
             out_dir = os.path.join(tmp, "out")
-            t0 = time.perf_counter()
-            res, chunks, calls = streamed_run(sseq, out_dir, ckpt)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
+            with recording_optimize() as seen_graphs:
+                t0 = time.perf_counter()
+                res, chunks, calls = streamed_run(sseq, out_dir, ckpt)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
             launches = read_launches()
             check_run_outputs(res, out_dir, n)
             state = checkpoint.load_state(ckpt)
@@ -1324,6 +1455,9 @@ def phase_stream(seq, results) -> dict:
                                      f"captured VO program, then the keyframe stack op by op), got {launches}")
             if launches["hamming_match"] < 2 * CAPTURE_TICKS + 1:
                 raise AssertionError(f"expected >= {2 * CAPTURE_TICKS + 1} match launches, got {launches}")
+            if launches["pose_graph_pcg"] != CAPTURE_TICKS or len(seen_graphs) != 1:
+                raise AssertionError(f"expected one pose graph and {CAPTURE_TICKS} PCG launches, got "
+                                     f"{len(seen_graphs)} and {launches}")
             info = res.backend_info
             log(f"backend info {json.dumps(info)}")
             if info["n_loop_edges"] < 1 or not info["pg_final_cost"] < info["pg_initial_cost"]:
@@ -1411,6 +1545,8 @@ def phase_stream(seq, results) -> dict:
             results["fast_score"]["stream_chunk"] = frontend_row(fast_c)
             results["orb_describe"]["stream_chunk"] = frontend_row(desc_c)
             results["hamming_match"]["stream_chunk"] = chunk_match
+            results["pose_graph_pcg"]["stream_run"] = pcg_case("stream run", seen_graphs[0],
+                                                               refine.PoseGraphRefineConfig().pg)
             del raw, chunk_frames, feats
     return dict(launches=launches, ate_rmse=res.ate.rmse, info=info, wall_s=wall_s, chunks=chunks,
                 in_memory_s=mem_s, match_pairs_differ=differ, warm_ms=warm_ms, read_ms=read_ms, h2d_ms=h2d_ms,
@@ -1722,7 +1858,8 @@ def op_by_op_rows(seq, stream_seq, feats, d: dict) -> dict:
 
 class eager_programs:
     """Within: optimize, run_ba and verification run their eager twins (the
-    backends op by op), for the like-for-like comparisons of phase G."""
+    backends op by op; the pose graph's CG runs in its kernel either way),
+    for the like-for-like comparisons of phase G."""
 
     def __enter__(self):
         from droplet_visual_odometry_tpu_torch.backend import ba, loop_closure, pose_graph
@@ -2012,7 +2149,7 @@ def phase_ingest(seq, stream: dict, results) -> dict:
         if synth_diff > SYNTH_ATE_TOL or synth["median_matches"] != int(np.median(ref.trajectory.n_matches)):
             raise AssertionError("the synthetic CLI run differs from the in-process run")
         if synth_launches != {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS,
-                              "hamming_match": CAPTURE_TICKS}:
+                              "hamming_match": CAPTURE_TICKS, "pose_graph_pcg": 0}:
             raise AssertionError(f"synthetic CLI launches {synth_launches}")
 
         # analyze on both TUM directories. It scores every frame of the streams (as the reference's
@@ -2263,8 +2400,8 @@ def phase_online(seq, none_traj, kernels) -> dict:
     armed_pose, results = results[0].pose, results[1:]
     launches = dict(vo.captured_launches)
     n_levels = cfg.n_levels
-    if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1}:
-        raise AssertionError(f"expected {n_levels}/{n_levels}/1 launches in the push graph, got {launches}")
+    if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1, "pose_graph_pcg": 0}:
+        raise AssertionError(f"expected {n_levels}/{n_levels}/1/0 launches in the push graph, got {launches}")
     nm = np.asarray([r.n_matches for r in results])
 
     # run_sequence over the same raw frames with each push's draws: push `step` draws from
@@ -2445,7 +2582,7 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     progs = [p for p in graphs.programs() if p.name == "shard_pair_vo"]
     log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}, "
         f"captured {[p.captured_launches for p in progs]}")
-    per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1}
+    per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1, "pose_graph_pcg": 0}
     if launches != {k: CAPTURE_TICKS * v for k, v in per_replay.items()}:
         raise AssertionError(f"expected {CAPTURE_TICKS} x {per_replay} launches (one capture of the 2B frames' "
                              f"program), got {launches}")
@@ -2766,7 +2903,8 @@ def phase_bench(seq) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = read_launches()
     # The warm-up run captures run_sequence's program; the timed runs replay it.
-    want = {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS, "hamming_match": CAPTURE_TICKS}
+    want = {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS, "hamming_match": CAPTURE_TICKS,
+            "pose_graph_pcg": 0}
     if launches != want:
         raise AssertionError(f"bench: expected {want} launches (one capture, then replays), got {launches}")
     online = bench.bench_online(seq, "cuda")

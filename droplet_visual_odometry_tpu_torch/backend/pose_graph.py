@@ -8,12 +8,25 @@ weights are scalar (E,), diagonal (E, 6) or full (E, 6, 6) information.
 
 The normal system is never formed: per-edge blocks B_e = J_j^T W J_j and the
 block diagonal give a block-Jacobi preconditioned CG whose Hessian-vector
-product is a gather, a batched 6x6 matvec and a scatter-add. The scatter-adds
-are `index_add_`, which on CUDA adds in no fixed order, so a result on the
-card can differ from run to run in the last f32 bits: tests hold it to a
-stated tolerance, never to bit equality. The CG stop test runs on the device
-(see `_pcg`), so `optimize` makes no host round trip. solver='dense' is
-the Cholesky-free dense solve kept for cross-checking small graphs.
+product is a gather, a batched 6x6 matvec and a scatter-add. Each GN step's
+CG (`_solve_pcg`) runs in one of two forms, chosen from what the step
+observes (`_pcg_in_kernel`: device, mesh, dtype and (M, E)):
+- on one CUDA device, for a float32 graph that one thread block cluster
+  holds (ops/cuda_pcg.plan: one block up to 637 nodes and as many edges,
+  up to 8 blocks past that, e.g. 2048 nodes and 4096 edges), every CG
+  iteration runs in one launch of the kernel csrc/pose_graph_pcg.cu, which
+  sums in a fixed order: two runs on the same system give the same bits;
+  this holds for `optimize` and `optimize_eager` alike;
+- elsewhere (the CPU, a mesh, float64, a graph past one cluster) the
+  op-by-op loop ops/cuda_pcg.pcg, the kernel's plain twin, whose
+  scatter-adds are `index_add_`: on CUDA they add in no fixed order, so
+  its result on the card can differ from run to run in the last f32 bits.
+The rhs and block-diagonal assembly (`_assemble_rhs_diag`) stays
+`index_add_` on every path, so a GN step's inputs to the CG, and hence a
+whole optimize, are not bit-reproducible on the card either: tests hold
+them to a stated tolerance. The CG stop test runs on the device in both
+forms, so `optimize` makes no host round trip. solver='dense' is the
+Cholesky-free dense solve kept for cross-checking small graphs.
 
 Edges are padded arrays with a weight mask: a zero-weight edge adds nothing
 to cost, gradient or preconditioner. Edge indices are int64 (the
@@ -28,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
+from droplet_visual_odometry_tpu_torch.ops import cuda_pcg
 from droplet_visual_odometry_tpu_torch.parallel.sharding import broadcast, local_shard, psum
 from droplet_visual_odometry_tpu_torch.utils import graphs, profiling
 
@@ -98,62 +112,12 @@ def _edge_blocks(poses: torch.Tensor, graph: PoseGraph) -> tuple[torch.Tensor, t
     return B, g
 
 
-def _gauge_mask(M: int, like: torch.Tensor) -> torch.Tensor:
-    """(M, 6) multiplier fixing node 0 (the gauge)."""
-    keep = (torch.arange(M, device=like.device) >= 1).to(like.dtype)
-    return keep[:, None] * torch.ones((1, 6), dtype=like.dtype, device=like.device)
-
-
 def _assemble_rhs_diag(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor):
     """Scatter-add the gradient (M, 6) and the block diagonal (M, 6, 6)."""
     ei, ej = graph.edge_i, graph.edge_j
     b = torch.zeros((M, 6), dtype=B.dtype, device=B.device).index_add_(0, ei, g).index_add_(0, ej, -g)
     D = torch.zeros((M, 6, 6), dtype=B.dtype, device=B.device).index_add_(0, ei, B).index_add_(0, ej, B)
     return b, D
-
-
-def _hx_local(B: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Edge-local part of the Hessian-vector product (no damping/gauge)."""
-    y = torch.einsum("eab,eb->ea", B, x[ei] - x[ej])  # (E, 6)
-    return torch.zeros_like(x).index_add_(0, ei, y).index_add_(0, ej, -y)
-
-
-def _pcg(matvec, b: torch.Tensor, Minv: torch.Tensor, iters: int, tol: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Block-preconditioned CG: solve H x = b with M^-1 given as (M, 6, 6).
-
-    The reference's while loop (k < iters and |r|^2 > tol |b|^2) without a
-    host round trip: all `iters` steps are issued, and once the test fails a
-    device-side flag sets the step length to 0. x and r then stay as they
-    were (x + 0 p = x for finite p), z = M^-1 r is recomputed from the same r
-    to the same bits, and p, which no longer reaches x, grows at most by z
-    per step; so x is the loop's. Returns (x, live): live () int32 on the
-    device, the steps whose flag was set, i.e. the loop's iteration count."""
-
-    def apply_minv(r):
-        return torch.einsum("mab,mb->ma", Minv, r)
-
-    x = torch.zeros_like(b)
-    r = b
-    z = apply_minv(r)
-    p = z
-    stop = tol * torch.clamp(torch.sum(b * b), min=1e-30)
-    active = torch.sum(r * r) > stop
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    flags = []
-    for _ in range(iters):
-        flags.append(active)
-        Hp = matvec(p)
-        rz = torch.sum(r * z)
-        alpha = torch.where(active, rz / torch.clamp(torch.sum(p * Hp), min=1e-30), zero)
-        x = x + alpha * p
-        r = r - alpha * Hp
-        z_new = apply_minv(r)
-        beta = torch.sum(r * z_new) / torch.clamp(rz, min=1e-30)
-        p = z_new + beta * p
-        z = z_new
-        active = active & (torch.sum(r * r) > stop)
-    live = torch.stack(flags).sum(dtype=torch.int32) if flags else torch.zeros((), dtype=torch.int32, device=b.device)
-    return x, live
 
 
 def _solve_dense(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, damping: float) -> torch.Tensor:
@@ -172,41 +136,57 @@ def _solve_dense(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, dam
     return torch.linalg.solve_ex(Hd, b.reshape(M * 6) * mask).result.reshape(M, 6)
 
 
+def _pcg_in_kernel(M: int, E: int, dtype: torch.dtype, device: torch.device, mesh=None) -> bool:
+    """Whether a GN step runs its CG in the kernel: on one CUDA device (no
+    mesh) for a graph the kernel takes (ops/cuda_pcg.fits); else op by op."""
+    return mesh is None and torch.device(device).type == "cuda" and cuda_pcg.fits(M, E, dtype)
+
+
+def _pcg_system(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor,
+                damping: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(b, Minv): the gauge-masked rhs (M, 6) and the block-Jacobi
+    preconditioner (M, 6, 6) of the normal system, row-major."""
+    b, D = _assemble_rhs_diag(M, graph, B, g)
+    b = b * cuda_pcg.gauge_mask(M, B)
+    # The gauge row gets the identity (its residual is identically zero, so
+    # CG never moves it).
+    eye6 = _eye(6, B)
+    D = torch.cat([eye6[None], (D + damping * eye6)[1:]])
+    # inv_ex: no host check of the factorisation; a batched inverse on CUDA may come back column-major.
+    return b, torch.linalg.inv_ex(D).inverse.contiguous()
+
+
 def _solve_pcg(M: int, graph: PoseGraph, B: torch.Tensor, g: torch.Tensor, cfg: PoseGraphConfig,
                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dx, live CG steps): the block-Jacobi PCG on the normal system."""
-    b, D = _assemble_rhs_diag(M, graph, B, g)
-    gm = _gauge_mask(M, B)
-    b = b * gm
-    # Block-Jacobi preconditioner; the gauge row gets the identity (its
-    # residual is identically zero, so CG never moves it).
-    eye6 = _eye(6, B)
-    D = torch.cat([eye6[None], (D + cfg.damping * eye6)[1:]])
-    Minv = torch.linalg.inv_ex(D).inverse  # inv_ex: no host check of the factorisation
-
+    """(dx, live CG steps): the block-Jacobi PCG on the normal system. On
+    one device the kernel where it takes the graph (`_pcg_in_kernel`),
+    else its plain twin; over a mesh ops/cuda_pcg.pcg with the
+    edge-sharded product."""
+    b, Minv = _pcg_system(M, graph, B, g, cfg.damping)
+    E = graph.edge_i.shape[0]
     if mesh is None:
-        hx_edges = lambda x: _hx_local(B, graph.edge_i, graph.edge_j, x)
-    else:
-        # The rhs and the preconditioner are replicated, but index_add_ sums
-        # in no fixed order on the card: every rank takes rank 0's, so all
-        # ranks run the same CG iterates bit for bit. Pad E to a multiple of
-        # the mesh size with zero-weight edges between node 0 and itself
-        # (B = 0: they add nothing); each rank takes its contiguous block of
-        # edges, and the edge-local products are summed over the mesh inside
-        # every CG step.
-        b, Minv = broadcast(mesh, b, Minv)
-        pad = (-B.shape[0]) % mesh.size
-        zi = torch.zeros(pad, dtype=graph.edge_i.dtype, device=B.device)
-        Bs = local_shard(mesh, torch.cat([B, torch.zeros((pad, 6, 6), dtype=B.dtype, device=B.device)]))
-        eis = local_shard(mesh, torch.cat([graph.edge_i, zi]))
-        ejs = local_shard(mesh, torch.cat([graph.edge_j, zi]))
-        hx_edges = lambda x: psum(mesh, _hx_local(Bs, eis, ejs, x))
+        solve = cuda_pcg.pcg_cuda if _pcg_in_kernel(M, E, B.dtype, B.device) else cuda_pcg.pcg_plain
+        return solve(B.contiguous(), graph.edge_i.contiguous(), graph.edge_j.contiguous(), b, Minv, cfg.damping,
+                     cfg.cg_iters, cfg.cg_tol)
+    # The rhs and the preconditioner are replicated, but index_add_ sums in
+    # no fixed order on the card: every rank takes rank 0's, so all ranks
+    # run the same CG iterates bit for bit. Pad E to a multiple of the mesh
+    # size with zero-weight edges between node 0 and itself (B = 0: they add
+    # nothing); each rank takes its contiguous block of edges, and the
+    # edge-local products are summed over the mesh inside every CG step.
+    b, Minv = broadcast(mesh, b, Minv)
+    gm = cuda_pcg.gauge_mask(M, B)
+    pad = (-E) % mesh.size
+    zi = torch.zeros(pad, dtype=graph.edge_i.dtype, device=B.device)
+    Bs = local_shard(mesh, torch.cat([B, torch.zeros((pad, 6, 6), dtype=B.dtype, device=B.device)]))
+    eis = local_shard(mesh, torch.cat([graph.edge_i, zi]))
+    ejs = local_shard(mesh, torch.cat([graph.edge_j, zi]))
 
     def matvec(x):
         x = x * gm
-        return hx_edges(x) * gm + cfg.damping * x
+        return psum(mesh, cuda_pcg.hx_local(Bs, eis, ejs, x)) * gm + cfg.damping * x
 
-    return _pcg(matvec, b, Minv, cfg.cg_iters, cfg.cg_tol)
+    return cuda_pcg.pcg(matvec, b, Minv, cfg.cg_iters, cfg.cg_tol)
 
 
 def _gn_step(graph: PoseGraph, poses: torch.Tensor, cur_cost: torch.Tensor, cfg: PoseGraphConfig, mesh=None):
@@ -231,7 +211,7 @@ def _gn_step(graph: PoseGraph, poses: torch.Tensor, cur_cost: torch.Tensor, cfg:
 def optimize_eager(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=None) -> PoseGraphResult:
     """Gauss-Newton op by op on the graph's device (the captured program's
     twin, over a mesh too): cfg.iters steps, each accepted or rejected on
-    the device."""
+    the device, each CG in the form `_solve_pcg` chooses."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
     initial = cost(graph)
@@ -252,22 +232,31 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=No
     outputs at every replay. (On the H100 the whole loop as one graph
     replayed no faster, and took 15x longer to capture: PERF.md section 6.)
     Callers pad to next_bucket sizes, so a few programs cover every run.
-    Elsewhere it runs optimize_eager.
+    Where the kernel takes the graph (float32, ops/cuda_pcg.fits), the
+    step's CG is one launch of csrc/pose_graph_pcg.cu, summed in a fixed
+    order; else it is the op-by-op ops/cuda_pcg.pcg inside the graph.
+    Elsewhere (the CPU) it runs optimize_eager's steps, the CG op by op.
 
     mesh: an optional parallel.sharding.Mesh (every rank of it calls
     optimize on the same graph): the PCG's Hessian-vector products run
     edge-sharded over it, one all_reduce of (M, 6) per CG step, after one
-    broadcast of rank 0's rhs and preconditioner. The CG stop test stays on
-    the device, so every rank issues the same collectives. Over an NCCL
-    mesh the GN step is captured with those collectives inside (one program
-    per signature and mesh, the reference's optimize_jit with its psum); on
-    gloo or without a group it runs op by op (utils/graphs.py).
+    broadcast of rank 0's rhs and preconditioner; that CG is always op by
+    op. The CG stop test stays on the device, so every rank issues the
+    same collectives. Over an NCCL mesh the GN step is captured with those
+    collectives inside (one program per signature and mesh, the
+    reference's optimize_jit with its psum); on gloo or without a group it
+    runs op by op (utils/graphs.py).
 
     Each GN step is a `pg.step` span (utils/profiling) with its device
-    interval and the count `live_iters`: the CG steps whose stop flag was
-    set, a device scalar the step returns beside poses and cost."""
+    interval and the counts `live_iters`, the CG steps whose stop flag was
+    set (a device scalar the step returns beside poses and cost; the
+    kernel writes its own count), and `pcg_kernel`, 1 when the step's CG
+    ran in the kernel and 0 when it ran op by op."""
     if cfg.solver not in ("pcg", "dense"):
         raise ValueError(f"unknown pose-graph solver: {cfg.solver}")
+
+    kernel = cfg.solver == "pcg" and _pcg_in_kernel(graph.poses.shape[0], graph.edge_i.shape[0],
+                                                     graph.poses.dtype, graph.poses.device, mesh)  # for the span
 
     def step(poses, cur_cost, *tensors):
         return _gn_step(PoseGraph(*tensors), poses, cur_cost, cfg, mesh)
@@ -278,7 +267,7 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), mesh=No
         with profiling.span("pg.step", device=graph.poses.device) as rec:
             poses, cur_cost, live = graphs.run("optimize_step", step, (poses, cur_cost, *graph), cfg,
                                                graph.poses.device, mesh)
-            rec.set(live_iters=live)
+            rec.set(live_iters=live, pcg_kernel=int(kernel))
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=cur_cost)
 
 

@@ -5,6 +5,9 @@
                                                              and the steering, bin and pack
                                                              after it in frontend/orb.py)
   cuda_match.match_reductions_cuda   csrc/hamming_match.cu  (replaces ops/pallas_match.py)
+  cuda_pcg.pcg_cuda                  csrc/pose_graph_pcg.cu (replaces no TPU kernel: the pose
+                                                             graph's op-by-op CG loop,
+                                                             cuda_pcg.pcg_plain)
 
 Each wrapper runs its plain twin for CPU tensors and its kernel for CUDA
 tensors, and raises otherwise; there is no fallback and no switch. Each keeps

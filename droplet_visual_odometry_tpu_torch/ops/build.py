@@ -48,6 +48,7 @@ _SIGNATURES = {
     "dvo_fast_score": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dvo_orb_describe": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dvo_pose_graph_pcg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
 }
 
 

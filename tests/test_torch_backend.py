@@ -36,6 +36,7 @@ from droplet_visual_odometry_tpu_torch.core import se3 as tse3
 from droplet_visual_odometry_tpu_torch.data import synthetic as tsynth
 from droplet_visual_odometry_tpu_torch.eval import metrics as tmetrics
 from droplet_visual_odometry_tpu_torch.eval import tum as ttum
+from droplet_visual_odometry_tpu_torch.ops import cuda_pcg
 
 from torch_backend_data import LC_KW, LOOP_CFG, RANSAC_KW, REFINE_KW, jax_verify_draws, mask_marker_midrun
 from torch_mp_worker import FixedDraws, run_ranks
@@ -180,9 +181,9 @@ def test_graph_terms_agree(form):
     np.testing.assert_allclose(b.numpy(), np.asarray(bj), atol=1e-5 * scale)
     np.testing.assert_allclose(D.numpy(), np.asarray(Dj), atol=1e-5 * scale)
     x = np.random.default_rng(24).normal(size=(N_NODES, 6)).astype(np.float32)
-    np.testing.assert_allclose(tpg._hx_local(B, tg.edge_i, tg.edge_j, torch.from_numpy(x)).numpy(),
+    np.testing.assert_allclose(cuda_pcg.hx_local(B, tg.edge_i, tg.edge_j, torch.from_numpy(x)).numpy(),
                                np.asarray(jpg._hx_local(Bj, jg.edge_i, jg.edge_j, jnp.asarray(x))), atol=1e-4 * scale)
-    np.testing.assert_array_equal(tpg._gauge_mask(N_NODES, B).numpy(), np.asarray(jpg._gauge_mask(N_NODES, jnp.float32)))
+    np.testing.assert_array_equal(cuda_pcg.gauge_mask(N_NODES, B).numpy(), np.asarray(jpg._gauge_mask(N_NODES, jnp.float32)))
 
 
 def _pcg_while(matvec, b, Minv, iters, tol):
@@ -218,15 +219,15 @@ def test_pcg_frozen_steps_equal_while_loop(cg_iters):
     tg, jg = _tgraph(g), _jgraph(g)
     B, gv = tpg._edge_blocks(tg.poses, tg)
     b, D = tpg._assemble_rhs_diag(N_NODES, tg, B, gv)
-    gm = tpg._gauge_mask(N_NODES, B)
+    gm = cuda_pcg.gauge_mask(N_NODES, B)
     eye6 = torch.eye(6)
     Minv = torch.linalg.inv_ex(torch.cat([eye6[None], (D + 1e-6 * eye6)[1:]])).inverse
 
     def matvec(x):
         x = x * gm
-        return tpg._hx_local(B, tg.edge_i, tg.edge_j, x) * gm + 1e-6 * x
+        return cuda_pcg.hx_local(B, tg.edge_i, tg.edge_j, x) * gm + 1e-6 * x
 
-    x, live = tpg._pcg(matvec, b * gm, Minv, cg_iters, 1e-8)
+    x, live = cuda_pcg.pcg(matvec, b * gm, Minv, cg_iters, 1e-8)
     x_ref, steps = _pcg_while(matvec, b * gm, Minv, cg_iters, 1e-8)
     assert steps == 3 if cg_iters == 3 else 3 < steps < cg_iters
     assert torch.equal(x, x_ref)
@@ -236,6 +237,94 @@ def test_pcg_frozen_steps_equal_while_loop(cg_iters):
     Bj, gj = jpg._edge_blocks(jg.poses, jg)
     xj = jpg._solve_pcg(N_NODES, jg, Bj, gj, jpg.PoseGraphConfig(cg_iters=cg_iters), None)
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-4 * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("form", WEIGHT_FORMS)
+def test_cuda_pcg_on_cpu_is_the_plain_loop(form):
+    """ops/cuda_pcg's wrapper sends CPU tensors to its plain twin, which is
+    its pcg with the one-device matvec, as _solve_pcg runs it on the CPU:
+    the same x and live count bit for bit, on the graph padded as refine
+    pads it."""
+    tg = tpg.pad_graph(_tgraph(_random_graph(form)), 32, 32)
+    cfg = tpg.PoseGraphConfig()
+    B, gv = tpg._edge_blocks(tg.poses, tg)
+    x_ref, live_ref = tpg._solve_pcg(32, tg, B, gv, cfg)
+    b, Minv = tpg._pcg_system(32, tg, B, gv, cfg.damping)
+    x, live = cuda_pcg.pcg_cuda(B, tg.edge_i, tg.edge_j, b, Minv, cfg.damping, cfg.cg_iters, cfg.cg_tol)
+    assert torch.equal(x, x_ref) and live.dtype == torch.int32 and int(live) == int(live_ref)
+
+
+def _meta_system(M=64, E=64, **bad):
+    """A (B, edge_i, edge_j, b, Minv) system on the meta device (shapes and
+    dtypes, no data), with the named entries replaced."""
+    f = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    sys_ = dict(B=f(E, 6, 6), edge_i=f(E, dtype=torch.int64), edge_j=f(E, dtype=torch.int64), b=f(M, 6),
+                Minv=f(M, 6, 6))
+    sys_.update(bad)
+    return tuple(sys_[k] for k in ("B", "edge_i", "edge_j", "b", "Minv"))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(B=torch.empty((64, 6, 6), dtype=torch.float64, device="meta")), "float32"),
+    (dict(b=torch.empty((64, 6), dtype=torch.float16, device="meta")), "float32"),
+    (dict(edge_j=torch.empty(64, dtype=torch.int32, device="meta")), "int64"),
+    (dict(B=torch.empty((64, 36), device="meta")), r"B \(E, 6, 6\)"),
+    (dict(edge_i=torch.empty(63, dtype=torch.int64, device="meta")), r"B \(E, 6, 6\)"),
+    (dict(Minv=torch.empty((32, 6, 6), device="meta")), r"B \(E, 6, 6\)"),
+    (dict(b=torch.empty((64, 7), device="meta")), r"B \(E, 6, 6\)"),
+    (dict(Minv=torch.empty((64, 6, 6), device="meta").transpose(-1, -2)), r"\['Minv'\] are not"),
+    (dict(B=torch.empty((16384, 6, 6), device="meta"), edge_i=torch.empty(16384, dtype=torch.int64, device="meta"),
+          edge_j=torch.empty(16384, dtype=torch.int64, device="meta")), "does not fit"),
+    ({}, "tensors on"),  # everything right, but not on a CUDA device
+])
+def test_cuda_pcg_rejects_what_the_kernel_does_not_take(bad, match):
+    """Off the CPU the wrapper launches the kernel or raises: on a dtype,
+    shape, layout or size the kernel does not take, and on a device that
+    is not CUDA. Meta tensors carry the shapes without a card."""
+    with pytest.raises(ValueError, match=match):
+        cuda_pcg.pcg_cuda(*_meta_system(**bad), 1e-6, 100, 1e-8)
+
+
+@pytest.mark.parametrize("M,E,dtype,device,mesh,kernel", [
+    (64, 64, torch.float32, "cuda", None, True),  # the offline cell's bucket
+    (512, 512, torch.float32, "cuda", None, True),  # the stream cell's
+    (637, 637, torch.float32, "cuda", None, True),
+    (638, 638, torch.float32, "cuda", None, True),
+    (651, 651, torch.float32, "cuda", None, True),  # the most one thread block's shared memory holds
+    (652, 652, torch.float32, "cuda", None, True),  # two blocks of a cluster
+    (512, 1024, torch.float32, "cuda", None, True),
+    (2048, 4096, torch.float32, "cuda", None, True),  # seven blocks
+    (4096, 4096, torch.float32, "cuda", None, False),  # past eight blocks' shared memory
+    (8192, 16, torch.float32, "cuda", None, False),  # past the rows eight blocks hold
+    (64, 64, torch.float64, "cuda", None, False),
+    (64, 64, torch.float32, "cpu", None, False),
+    (64, 64, torch.float32, "cuda", "mesh", False),  # the edge-sharded CG keeps its psum each step
+])
+def test_pcg_path_follows_shape_dtype_device_and_mesh(M, E, dtype, device, mesh, kernel):
+    """A GN step runs its CG in the kernel only on one CUDA device, for a
+    float32 graph that one cluster of at most eight blocks takes; else op
+    by op."""
+    assert tpg._pcg_in_kernel(M, E, dtype, torch.device(device), mesh) is kernel
+    assert cuda_pcg.fits(M, E, torch.float32) or not kernel
+
+
+@pytest.mark.parametrize("M,E,blocks", [
+    (16, 16, (1, 4)), (64, 64, (1, 13)), (512, 512, (1, 32)), (651, 651, (1, 32)), (652, 652, (2, 32)),
+    (800, 16, (1, 32)), (801, 16, (2, 32)),
+    (512, 1024, (2, 32)), (1024, 1024, (2, 32)), (1024, 2048, (4, 32)), (2048, 2048, (5, 32)),
+    (2048, 4096, (7, 32)), (4096, 4096, None), (0, 16, None),
+])
+def test_pcg_plan_takes_the_smallest_cluster(M, E, blocks):
+    """plan gives the fewest blocks (and their warps, five nodes a warp)
+    whose shared memory and registers take the graph: one block up to
+    (637, 637), then a cluster, None past eight blocks."""
+    assert cuda_pcg.plan(M, E) == blocks
+    if blocks is not None:
+        c, w = blocks
+        s, sc = 5 * w, 5 * w * c
+        r = -(-M // sc)
+        assert r <= cuda_pcg.MAX_ROWS
+        assert cuda_pcg.smem_bytes(min(M, r * s), min(E, -(-E // sc) * s), E) <= cuda_pcg.MAX_SMEM
 
 
 @pytest.mark.parametrize("solver,form", [("pcg", "scalar"), ("pcg", "diag"), ("pcg", "full"), ("dense", "full")])

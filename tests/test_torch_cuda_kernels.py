@@ -17,7 +17,7 @@ from droplet_visual_odometry_tpu_torch.data import synthetic
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
 from droplet_visual_odometry_tpu_torch.eval import metrics
 from droplet_visual_odometry_tpu_torch.frontend import features, orb
-from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match
+from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match, cuda_pcg
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +37,7 @@ def _count_from_zero():
     from droplet_visual_odometry_tpu_torch.utils import graphs
 
     graphs.clear()
-    for mod in (cuda_fast, cuda_describe, cuda_match):
+    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg):
         mod.LAUNCHES = 0
 
 
@@ -410,6 +410,7 @@ def test_pose_graph_trajectory_on_cuda(cuda_device):
                                                  draws=draws)
     # The keyframe stack and retrieval op by op, verification captured.
     assert (cuda_fast.LAUNCHES, cuda_describe.LAUNCHES, cuda_match.LAUNCHES) == (4, 4, 3)
+    assert cuda_pcg.LAUNCHES == 2  # the GN step's warm-up and capture: its CG in the kernel
     for key in ("n_keyframes", "n_bridge_pairs", "loop_pairs"):
         assert gpu_info[key] == cpu_info[key], key
     assert gpu_info["n_loop_edges"] >= 1 and gpu_info["pg_final_cost"] < gpu_info["pg_initial_cost"]
@@ -599,7 +600,8 @@ def test_online_vo_graph_replay_equals_eager(cuda_device, frontend):
         assert r.ok
     n_levels = VOConfig().n_levels
     if frontend == "orb":
-        assert vo.captured_launches == {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1}
+        assert vo.captured_launches == {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1,
+                                        "pose_graph_pcg": 0}
         assert counts[0] == (2 * n_levels, 2 * n_levels, 2) and set(counts[1:]) == {(0, 0, 0)}
     gt = np.linalg.inv(np.asarray(seq.marker_poses[-1], np.float64))[:3, 3]
     assert np.linalg.norm(np.linalg.inv(vo.pose.astype(np.float64))[:3, 3] - gt) < 0.25
@@ -789,6 +791,222 @@ def _random_pose_graph(device, n=24, seed=0):
     return pose_graph.PoseGraph(*(t.to(device) for t in (true @ drift, ei, ej, meas, w)))
 
 
+def _chain_graph(device, n, n_loops, form="full", seed=0, bucket=True):
+    """A drifting chain of n nodes plus n_loops random loop edges with
+    scalar, diagonal or full SPD weights, padded to refine's buckets."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.core import se3
+
+    g = torch.Generator().manual_seed(seed)
+    steps = se3.se3_exp(torch.cat([0.1 * torch.randn(n - 1, 3, generator=g), 0.05 * torch.randn(n - 1, 3, generator=g)], 1))
+    true = [torch.eye(4)]
+    for s in steps:
+        true.append(true[-1] @ s)
+    true = torch.stack(true)
+    li = torch.randint(0, n // 2, (n_loops,), generator=g)
+    lj = li + n // 4 + torch.randint(0, n // 4, (n_loops,), generator=g)
+    ei, ej = torch.cat([torch.arange(n - 1), li]), torch.cat([torch.arange(1, n), lj])
+    meas = se3.inverse(true[ei]) @ true[ej] @ se3.se3_exp(0.01 * torch.randn(len(ei), 6, generator=g))
+    drift = se3.se3_exp(0.03 * torch.randn(n, 6, generator=g))
+    drift[0] = torch.eye(4)
+    if form == "scalar":
+        w = 0.5 + 1.5 * torch.rand(len(ei), generator=g)
+    elif form == "diag":
+        w = 0.2 + 2.8 * torch.rand(len(ei), 6, generator=g)
+    else:
+        A = torch.randn(len(ei), 6, 6, generator=g)
+        w = A @ A.transpose(-1, -2) / 6 + 0.1 * torch.eye(6)
+    graph = pose_graph.PoseGraph(true @ drift, ei, ej, meas, w)
+    if bucket:
+        graph = pose_graph.pad_graph(graph, pose_graph.next_bucket(n), pose_graph.next_bucket(len(ei)))
+    return pose_graph.PoseGraph(*(t.to(device) for t in graph))
+
+
+def _pcg_system(graph, damping=1e-6):
+    """(B, edge_i, edge_j, b, Minv) of the graph's first GN step, as
+    pose_graph._solve_pcg builds them, row-major."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+
+    M = graph.poses.shape[0]
+    B, g = pose_graph._edge_blocks(graph.poses, graph)
+    b, Minv = pose_graph._pcg_system(M, graph, B, g, damping)
+    return B.contiguous(), graph.edge_i, graph.edge_j, b, Minv
+
+
+def _pcg_three_ways(system):
+    """The kernel, its plain twin op by op on the card, and the plain twin in
+    float64: ((x, live) each), the kernel's launch counted."""
+    before = cuda_pcg.LAUNCHES
+    out = cuda_pcg.pcg_cuda(*system, 1e-6, 100, 1e-8)
+    ref = cuda_pcg.pcg_plain(*system, 1e-6, 100, 1e-8)
+    f64 = cuda_pcg.pcg_plain(*(t.double() if t.is_floating_point() else t for t in system), 1e-6, 100, 1e-8)
+    torch.cuda.synchronize()
+    assert cuda_pcg.LAUNCHES == before + 1 and out[1].dtype == torch.int32
+    return out, ref, f64
+
+
+def _rel(x, ref):
+    return float((x.double() - ref.double()).abs().max()) / float(ref.abs().max())
+
+
+@pytest.mark.parametrize("form", ["scalar", "diag", "full"])
+@pytest.mark.parametrize("n,n_loops,bucket", [(41, 9, (64, 64)), (257, 255, (512, 512)), (20, 3, (32, 32))])
+def test_pcg_kernel_matches_the_plain_loop(cuda_device, form, n, n_loops, bucket):
+    """The kernel against its plain twin (op by op on the card) and the same
+    loop in float64, on a GN step's system at the offline cell's bucket (41
+    keyframes in 64), at the stream cell's (512, 512) on a graph with as
+    many loop edges as chain edges, and on a mostly padded graph, for each
+    weight form: the same live count, and x within 1e-4 of max |x| of
+    each. On the CPU two f32 summation orders (the edges reversed) part by
+    at most 2.1e-5 on these systems and 4.7e-6 at (512, 512)."""
+    graph = _chain_graph(cuda_device, n, n_loops, form, seed=n)
+    assert (graph.poses.shape[0], graph.edge_i.shape[0]) == bucket
+    (x, live), (x_ref, live_ref), (x64, live64) = _pcg_three_ways(_pcg_system(graph))
+    assert int(live) == int(live_ref) == int(live64)
+    assert _rel(x, x_ref) <= 1e-4 and _rel(x, x64) <= 1e-4
+    assert float(x[0].abs().max()) == 0.0 and float(x[n:].abs().max()) == 0.0  # gauge and padding
+
+
+@pytest.mark.parametrize("form", ["scalar", "diag", "full"])
+def test_pcg_kernel_unconverged_at_the_stream_bucket(cuda_device, form):
+    """At the stream cell's bucket with its 428 keyframes and 80 loop edges,
+    100 CG steps do not converge, and unconverged f32 CG amplifies
+    rounding: on the CPU the plain loop lies up to 9.5e-5 from float64 here
+    and 2.8e-5 from itself with the edges reversed, and on an H100 the
+    kernel and the plain loop part by up to 3.7e-4. So this system checks
+    the live count, the gauge and padding, and x within 5e-4 of max |x| of
+    float64; the 1e-4 hold on the kernel is made on the converging systems
+    above and below."""
+    graph = _chain_graph(cuda_device, 428, 80, form, seed=428)
+    (x, live), (_, live_ref), (x64, live64) = _pcg_three_ways(_pcg_system(graph))
+    assert int(live) == int(live_ref) == int(live64) == 100
+    assert _rel(x, x64) <= 5e-4
+    assert float(x[0].abs().max()) == 0.0 and float(x[428:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,n_loops,bucket,form,blocks", [
+    (400, 600, (512, 1024), "scalar", 2), (400, 600, (512, 1024), "diag", 2), (400, 600, (512, 1024), "full", 2),
+    (600, 424, (1024, 1024), "scalar", 2), (600, 424, (1024, 1024), "full", 2),
+    (1100, 2900, (2048, 4096), "scalar", 7), (1100, 2900, (2048, 4096), "diag", 7),
+])
+def test_pcg_kernel_in_a_cluster_matches_the_plain_loop(cuda_device, n, n_loops, bucket, form, blocks):
+    """Past one block's shared memory the kernel runs on a thread block
+    cluster (ops/cuda_pcg.plan), p and y exchanged through distributed
+    shared memory: against the plain loop and float64 as at one block,
+    on converging graphs (two f32 orders part by at most 1.7e-5 on the CPU),
+    to 1e-4 of max |x|, with the same live count; two launches give the
+    same bits."""
+    graph = _chain_graph(cuda_device, n, n_loops, form, seed=n)
+    assert (graph.poses.shape[0], graph.edge_i.shape[0]) == bucket and cuda_pcg.plan(*bucket)[0] == blocks
+    system = _pcg_system(graph)
+    (x, live), (x_ref, live_ref), (x64, live64) = _pcg_three_ways(system)
+    assert int(live) == int(live_ref) == int(live64)
+    assert _rel(x, x_ref) <= 1e-4 and _rel(x, x64) <= 1e-4
+    assert float(x[0].abs().max()) == 0.0 and float(x[n:].abs().max()) == 0.0
+    again = cuda_pcg.pcg_cuda(*system, 1e-6, 100, 1e-8)
+    assert torch.equal(again[0], x) and torch.equal(again[1], live)
+
+
+@pytest.mark.parametrize("M,blocks", [(651, 1), (652, 2)])
+def test_pcg_kernel_takes_the_largest_graph_fits_admits(cuda_device, M, blocks):
+    """At (651, 651), the largest square graph one block takes, the launch
+    takes the shared memory the wrapper counted (one byte more than the
+    card allows would be refused at launch); at (652, 652) the kernel takes
+    two blocks. Both match the plain loop's live count and float64 to 5e-4
+    (a chain with one loop edge does not converge in 100 steps)."""
+    assert cuda_pcg.plan(M, M)[0] == blocks
+    graph = _chain_graph(cuda_device, M, 1, "full", seed=637, bucket=False)
+    (x, live), (_, live_ref), (x64, _) = _pcg_three_ways(_pcg_system(graph))
+    assert int(live) == int(live_ref)
+    assert _rel(x, x64) <= 5e-4
+
+
+def test_pcg_kernel_stops_where_the_while_loop_stops(cuda_device):
+    """A well-conditioned graph (a chain with as many loop edges as nodes)
+    converges before the cap: the kernel's live count equals the
+    reference's while loop's step count on the same system, and the loop
+    stopped early."""
+    from test_torch_profiling import _pcg_while
+
+    B, ei, ej, b, Minv = _pcg_system(_chain_graph(cuda_device, 24, 24, "full", seed=3))
+    counts = []
+    x_ref, _ = _pcg_while(cuda_pcg.matvec_local(B, ei, ej, 1e-6, b.shape[0]), b, Minv, 100, 1e-8, counts=counts)
+    x, live = cuda_pcg.pcg_cuda(B, ei, ej, b, Minv, 1e-6, 100, 1e-8)
+    assert 0 < counts[0] < 100 and int(live) == counts[0]
+    assert _rel(x, x_ref) <= 1e-4
+
+
+@pytest.mark.parametrize("bucket", [(512, 512), (512, 1024)])
+def test_pcg_kernel_repeats_bit_for_bit(cuda_device, bucket):
+    """Two launches on the same system give the same bits, on a graph whose
+    hub node has 90 loop edges (91 terms in one Hx entry) and whose
+    padding puts its filler self-loops on node 0, in one block and in a
+    cluster of two; an edge end outside the graph makes x NaN and the live
+    count 0."""
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+
+    graph = _chain_graph(cuda_device, 300, 90, "full", seed=7, bucket=False)
+    hub = graph.edge_i.clone()
+    hub[299:] = 5  # every loop edge leaves node 5
+    graph = pose_graph.pad_graph(graph._replace(edge_i=hub), *bucket)  # zero-weight self-loops on node 0
+    system = _pcg_system(graph)
+    first = cuda_pcg.pcg_cuda(*system, 1e-6, 100, 1e-8)
+    second = cuda_pcg.pcg_cuda(*system, 1e-6, 100, 1e-8)
+    assert all(torch.equal(u, v) for u, v in zip(first, second)) and bool(torch.isfinite(first[0]).all())
+    B, ei, ej, b, Minv = system
+    bad = ej.clone()
+    bad[3] = b.shape[0]
+    x, live = cuda_pcg.pcg_cuda(B, ei, bad, b, Minv, 1e-6, 100, 1e-8)
+    assert bool(torch.isnan(x).all()) and int(live) == 0
+
+
+def test_optimize_step_runs_its_cg_in_one_kernel_launch(cuda_device):
+    """On one device the GN step's program holds one PCG kernel launch and
+    no other kernel of the port (captured_launches), every pg.step carries
+    pcg_kernel = 1, and optimize agrees with the op-by-op twin
+    (optimize_eager) in float64. On a chain with three loop edges f32 GN
+    drifts along a flat valley of the cost: on the CPU two f32 summation
+    orders end 1.24e-4 apart in the poses and 3e-8 apart in the cost, one
+    of them 1.6e-7 from float64; so there the final cost is held to 1e-6
+    relative. On a chain with as many loop edges as nodes, where two f32
+    orders end 2.7e-7 apart, the poses are held to 1e-4. The CG, captured
+    alone, replays bit for bit; the whole step does not: its rhs and
+    block-diagonal assembly stays index_add_, whose block diagonal differs
+    from run to run on the card even where no slot sums more than two
+    non-zero terms."""
+    import time
+
+    from droplet_visual_odometry_tpu_torch.backend import pose_graph
+    from droplet_visual_odometry_tpu_torch.utils import graphs, profiling
+
+    f64 = lambda g: pose_graph.PoseGraph(*(t.double() if t.is_floating_point() else t for t in g))
+    graph = _chain_graph(cuda_device, 24, 0, "full", seed=11)
+    loops = pose_graph.add_edges(graph, [1, 3, 6], [14, 18, 21], graph.edge_meas[[1, 3, 6]] @ graph.edge_meas[[2, 4, 7]],
+                                 graph.edge_weight[:3])
+    loops = pose_graph.pad_graph(loops, 32, 64)
+    _count_from_zero()
+    t0 = time.perf_counter()
+    with profiling.span("test.root"):
+        res = pose_graph.optimize(loops)
+    t1 = time.perf_counter()
+    steps = [r for r in profiling.snapshot(t0, t1) if r.name == "pg.step"]
+    assert len(steps) == 10 and all(r.attrs["pcg_kernel"] == 1 for r in steps)
+    progs = [p for p in graphs.programs() if p.name == "optimize_step"]
+    assert len(progs) == 1 and progs[0].captured_launches == {"fast_score": 0, "orb_describe": 0, "hamming_match": 0,
+                                                              "pose_graph_pcg": 1}
+    assert cuda_pcg.LAUNCHES == 2  # the warm-up and the capture; replays tick no counter
+    assert float(res.final_cost) < float(res.initial_cost)
+    eager = pose_graph.optimize_eager(f64(loops))
+    assert abs(float(res.final_cost) - float(eager.final_cost)) <= 1e-6 * float(eager.final_cost)
+    dense = _chain_graph(cuda_device, 24, 24, "full", seed=11)
+    np.testing.assert_allclose(pose_graph.optimize(dense).poses.cpu().numpy(),
+                               pose_graph.optimize_eager(f64(dense)).poses.cpu().numpy(), rtol=0, atol=1e-4)
+    system = _pcg_system(loops)
+    body = lambda *t: cuda_pcg.pcg_cuda(*t, 1e-6, 100, 1e-8)
+    first, second = (graphs.run("pcg_alone", body, system, None, cuda_device) for _ in range(2))
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
 def test_edge_sharded_optimize_on_nccl_world_one(nccl_world_one):
     """optimize(mesh) over a one-rank NCCL mesh (one all_reduce of the
     edge-local product a CG step) against the plain optimize on the card:
@@ -855,7 +1073,7 @@ def test_sharded_programs_capture_their_collectives_on_nccl_world_one(nccl_world
         else:
             assert all(torch.equal(x, y) and torch.equal(z, y) for x, y, z in zip(again, ref, first))
     launches = {p.name: p.captured_launches for p in graphs.programs() if p.mesh is mesh}
-    assert launches["shard_pair_vo"] == {"fast_score": 4, "orb_describe": 4, "hamming_match": 1}
+    assert launches["shard_pair_vo"] == {"fast_score": 4, "orb_describe": 4, "hamming_match": 1, "pose_graph_pcg": 0}
     assert set(launches["optimize_step"].values()) == set(launches["run_ba_distributed"].values()) == {0}
     graphs.clear(mesh=mesh)
     assert not [p for p in graphs.programs() if p.mesh is not None]

@@ -35,6 +35,7 @@ from droplet_visual_odometry_tpu_torch.core import se3
 from droplet_visual_odometry_tpu_torch.data.synthetic import SyntheticConfig, render_sequence
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
+from droplet_visual_odometry_tpu_torch.ops import cuda_pcg
 from droplet_visual_odometry_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -331,10 +332,27 @@ def test_pcg_live_iters_equal_a_plain_while_loop():
         out = pose_graph.optimize(graph, cfg)
     live = [r.attrs["live_iters"] for r in profiling.snapshot(t0) if r.name == "pg.step"]
     counts: list[int] = []
-    with mock.patch.object(pose_graph, "_pcg", lambda *a: _pcg_while(*a, counts=counts)):
+    with mock.patch.object(cuda_pcg, "pcg", lambda *a: _pcg_while(*a, counts=counts)):
         ref = pose_graph.optimize_eager(graph, cfg)
     assert live == counts and len(live) == cfg.iters and all(0 < k < cfg.cg_iters for k in live)
     assert torch.equal(out.poses, ref.poses)
+
+
+def test_pg_step_counts_the_cg_path():
+    """Each pg.step span carries pcg_kernel: 0 where the CG ran op by op,
+    as it does on the CPU (the kernel runs only on a CUDA device), for the
+    PCG and the dense solver alike."""
+    M = 10
+    poses = se3.se3_exp(torch.as_tensor(np.random.default_rng(5).normal(0, 0.3, (M, 6)), dtype=torch.float32))
+    graph = pose_graph.sequential_edges(poses)
+    graph = graph._replace(poses=se3.se3_exp(0.01 * torch.ones(M, 6)) @ poses)
+    for solver in ("pcg", "dense"):
+        cfg = pose_graph.PoseGraphConfig(iters=2, solver=solver)
+        t0 = time.perf_counter()
+        with profiling.span("test.root"):
+            pose_graph.optimize(graph, cfg)
+        steps = [r for r in profiling.snapshot(t0) if r.name == "pg.step"]
+        assert len(steps) == cfg.iters and all(r.attrs["pcg_kernel"] == 0 for r in steps), solver
 
 
 def test_loop_verify_counts_what_find_loop_closures_used(seq):
