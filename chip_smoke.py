@@ -16,16 +16,17 @@ Phases (any failure raises, so the exit code is non-zero):
      describe at each level's real keypoint origins, words equal and angle
      differences counted; match on the 23 real descriptor pairs plus a
      random K=2048 case), with kernel and plain device times from CUDA
-     events (device_ms: L2 evicted, host overhead hidden; call_ms: one call
-     with its launch), the describe row beside the old chain's f32 steering
-     matmul alone, and each kernel's bound: the least time for its bytes at
-     3.35 TB/s or its operations at the card's peak rate, counted from this
-     run's inputs. The match row also carries its bound at the popcount
-     rate (for reference), the time of the bf16 matmul of its +-1 operands
-     (the distance product alone, no reduction; the port never calls it),
-     the time of a launch that does nothing (the floor of that timing),
-     and a sweep at P=23 over K = 512, 1024, 2048 plus P=64 at K=512, each
-     point exact against the plain twin;
+     events (the benchmark's device_ms, benchmark/vobench/kerneltime.py:
+     L2 evicted, host overhead hidden; call_ms: one call with its launch),
+     the describe row beside the old chain's f32 steering matmul alone, and
+     each kernel's bound: kerneltime.bound_ms of the bytes and operations
+     that benchmark/roofline/<kernel>.py counts from this run's inputs, at
+     the card's published peaks. The match row also carries its bound at
+     the popcount rate (for reference), the time of the bf16 matmul of its
+     +-1 operands (the distance product alone, no reduction; the port never
+     calls it), the time of a launch that does nothing (the floor of that
+     timing), and a sweep at P=23 over K = 512, 1024, 2048 plus P=64 at
+     K=512, each point exact against the plain twin;
   4. the port's main path, pipeline.run_experiment(backend="none",
      device="cuda"), with every kernel's launch counter checked (FAST and
      describe once per pyramid level, match once, in the captured VO
@@ -76,10 +77,9 @@ Phases (any failure raises, so the exit code is non-zero):
      utils/graphs.py): run_sequence on the bench workload (24 frames) and on
      the stream cell's first chunk (257 frames), each replay bit for bit
      against run_sequence_eager; pose_graph.optimize on phase 5's padded
-     graph, one GN step a replay (the module's form) and the whole GN loop
-     as one graph (the other form, timed in turns beside it), within
-     GRAPH_TOL of optimize_eager, and pose_graph_trajectory through the
-     graphs against op by op (loop pairs equal, poses within GRAPH_TOL);
+     graph, one GN step a replay, within GRAPH_TOL of optimize_eager, and
+     pose_graph_trajectory through the graphs against op by op (loop pairs
+     equal, poses within GRAPH_TOL);
      run_ba on phase 6's windows (the whole LM loop) within GRAPH_TOL of
      run_ba_eager, and refine_trajectory's accepted windows and poses
      against op by op; loop-closure verification at P = 128, K = 1024 bit
@@ -144,12 +144,6 @@ Phases (any failure raises, so the exit code is non-zero):
      match at P = 1) against their twins; then a SIFT engine's pushes
      against its eager step. The push draws from the engine's ring of 256
      steps (tools/torch_push_draws.py times the in-graph form beside it);
-  9b. the bench harness (phase B), droplet_visual_odometry_tpu_torch/bench.py
-     in this process on the rendered bench workload: the default mode
-     (OpenCV baseline, then run_sequence; its launches 24/24/>=6 over the
-     warm-up and 5 timed runs), --online and --stream over 400 frames
-     through a store it writes, each JSON line printed and checked, the
-     phase's wall;
   10. multi-device (phase M), parallel/ on torch.distributed, one card:
      M1, a world of one rank over NCCL (launch.initialize with a
      coordinator), where the sharded programs are CUDA graphs with their
@@ -191,11 +185,9 @@ tracks).
 Then one JSON line with the per-kernel results (`launches` from phase 7's
 run, `launches_by_path` from phases 4-10 ("cli": phase I's run of
 cli.run_experiment on the converted bag; "mesh": M1's shard_pair_vo;
-"parity": phase P's distorted_1440 default row; "bench": phase B's default
-mode, the warm-up (which captures) and 5 timed runs (replays)), each
-run with the counts set to 0 just before it; "online" per push, counted at
-the graph's capture), and
-last the line {"ok": true, "device": {...}}.
+"parity": phase P's distorted_1440 default row), each run with the counts
+set to 0 just before it; "online" per push, counted at the graph's
+capture), and last the line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a GPU, or without the rest of the
 repository beside it, it fails before printing any result.
@@ -216,6 +208,11 @@ import types
 
 import numpy as np
 import torch
+
+# The kernels' timing, peaks and roofline counts are the benchmark's.
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark"))
+from roofline import fast_score as fast_roof, hamming_match as match_roof, orb_describe as desc_roof  # noqa: E402
+from vobench.kerneltime import F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, bound_ms, device_ms  # noqa: E402
 
 # bench.py:43-56 — the reference's benchmark workload.
 SEQ_CONFIG = dict(
@@ -355,7 +352,6 @@ ONLINE_TIMED = 20
 # PCG within MESH_PCG_TOL of the one-device optimize, and M2's run_experiment
 # within RESUME_POSE_TOL of phase 5's backend on phase 5's VO chain (the
 # figures of chip_smoke.py runs on an NVIDIA H100 80GB HBM3, 700.00 W).
-BENCH_STREAM_FRAMES = 400
 MESH_PAIRS = 32
 MESH_PCG_TOL = 1e-4
 MESH_BA_POSE_TOL = 2e-3
@@ -372,56 +368,14 @@ REPLACES = {
     "pose_graph_pcg": "none: the CG loop of droplet_visual_odometry_tpu/backend/pose_graph.py:143, XLA ops",
 }
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s,
-# f32 operations/s outside the tensor cores, dense int8 tensor-core
-# operations/s, and 32-bit popcounts per clock per SM (16 on sm_90) over its
-# 132 SMs.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-INT8_OPS_PER_S = 1979e12
+# The match's bound at the popcount rate, beside the benchmark's int8 one:
+# 32-bit popcounts per clock per SM (16 on sm_90) over the H100 SXM's 132 SMs.
 POPC_PER_CLOCK_PER_SM = 16
 N_SMS = 132
-
-# Operations FAST does per pixel (csrc/fast_score.cu): every interior pixel
-# runs the compass pre-test (centre +- threshold, 8 compares); a pixel that
-# passes runs the ring (16 x: sub, abs, sub, 2 compares, 2 adds) and the max.
-FAST_PRETEST_OPS = 10
-FAST_RING_OPS = 16 * 7 + 1
-
-# Kernel timing (device_ms): the bytes written to evict the L2 before each
-# timed call, and the spin before it (about 2 ms at 1.98 GHz), longer than
-# the host takes to enqueue any timed call of this script.
-FLUSH_BYTES = 128 * 2**20
-SPIN_CYCLES = 4_000_000
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of one fn() in ms, from CUDA events around it.
-
-    Before each timed call a spin kernel holds the card while the host
-    enqueues the call, so the host's launch overhead is not counted, and a
-    write of FLUSH_BYTES evicts the 50 MB L2, as the main path finds each
-    input cold (an earlier stage wrote it, and a level-0 image is 149 MB)."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def call_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -442,11 +396,11 @@ def call_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str, float, float]:
-    """(bound ms, what bounds it, bytes ms, operations ms)."""
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), bytes_ms, ops_ms
+def roof(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The benchmark's bound_ms of a call's bytes and operations, with the
+    bytes' and the operations' times apart."""
+    b_ms, by = bound_ms(n_bytes, n_ops, ops_per_s)
+    return dict(bound_ms=b_ms, bound_by=by, bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3, ops_ms=n_ops / ops_per_s * 1e3)
 
 
 def sm_clocks_mhz() -> tuple[float, float]:
@@ -457,32 +411,6 @@ def sm_clocks_mhz() -> tuple[float, float]:
     ).stdout.strip().splitlines()[0]
     cur, top = (float(v) for v in out.split(","))
     return cur, top
-
-
-def fast_candidates(level: torch.Tensor, threshold: float, arc: int) -> tuple[int, int]:
-    """(interior pixels, pixels that pass FAST's compass pre-test) of a level."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_fast
-
-    n, h, w = level.shape
-    c = level[:, 3:-3, 3:-3]
-    nb = torch.zeros_like(c, dtype=torch.int32)
-    nd = torch.zeros_like(c, dtype=torch.int32)
-    for j in cuda_fast.COMPASS:
-        dy, dx = cuda_fast.CIRCLE_OFFSETS[j]
-        v = level[:, 3 + dy : h - 3 + dy, 3 + dx : w - 3 + dx]
-        nb += (v > c + threshold).to(torch.int32)
-        nd += (v < c - threshold).to(torch.int32)
-    need = cuda_fast.compass_need(arc)
-    return c.numel(), int(((nb >= need) | (nd >= need)).sum())
-
-
-def match_bound(p: int, k: int) -> tuple[float, str, float, float]:
-    """Bound of the match reductions of P pairs of K descriptors: both sets
-    and masks read, four (P, K) 4-byte outputs written; 2*K*K*256
-    operations a pair (the 256-bit product popc(a & b) of every row with
-    every column) at the int8 tensor-core rate: the data sheet gives no
-    binary rate."""
-    return bound(2 * p * k * 32 + 2 * p * k + 4 * p * k * 4, 2.0 * p * k * k * 256, INT8_OPS_PER_S)
 
 
 def check_match(label: str, da, db, va, vb) -> float:
@@ -634,19 +562,15 @@ def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dic
         if not torch.equal(out_k, out_p):  # the same f32 ops in the same neighbour order
             raise AssertionError(f"FAST {label} level {l}: {int((out_k != out_p).sum())} px differ from plain, "
                                  f"max {float((out_k - out_p).abs().max())}")
-        interior, passed = fast_candidates(level, 20.0, 9)
-        b_ms, _, by_ms, op_ms = bound(8.0 * level.numel(), interior * FAST_PRETEST_OPS + passed * FAST_RING_OPS,
-                                      F32_OPS_PER_S)
+        r = roof(*fast_roof.counts(level), F32_OPS_PER_S)
         ms = device_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
         fast_r["ms"] += ms
         fast_r["call_ms"] += call_ms(lambda: cuda_fast.fast_score_cuda(level, 20.0, 9))
         fast_r["plain_ms"] += device_ms(lambda: fast_plain(level), reps=3, warmup=1)
-        fast_r["bound_ms"] += b_ms
-        fast_r["bytes_ms"] += by_ms
-        fast_r["ops_ms"] += op_ms
+        for f in ("bound_ms", "bytes_ms", "ops_ms"):
+            fast_r[f] += r[f]
         log(f"fast_score {label} level {l} {tuple(level.shape)}: equal to plain; corners {int((out_k > 0).sum())}; "
-            f"compass pre-test passes {passed} of {interior} interior px ({passed / interior:.4f}); "
-            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
         kps = fast.select_topk_rows(fast.nms3x3(out_k), budgets[l])
         blur = filters.gaussian_blur(level, 2.0, 4, compute_dtype=torch.bfloat16).contiguous()
@@ -665,14 +589,7 @@ def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dic
         differ = int((ak != ap).sum())
         desc_r["angles_differ"] += differ
         desc_r["max_abs_err"] = max(desc_r["max_abs_err"], float((ak - ap).abs().max()))
-        # The least bytes: each distinct pixel under a patch read once, the
-        # origins and the (30, 256, 2) int16 pair table read, 36 B written per keypoint.
-        covered = torch.zeros(level.shape, dtype=torch.bool, device="cuda")
-        r = torch.arange(cuda_describe.PATCH, device="cuda")
-        o = origins.long()
-        covered[o[:, 0, None, None], (o[:, 1, None] + r)[:, :, None], (o[:, 2, None] + r)[:, None, :]] = True
-        desc_bytes = 4.0 * int(covered.sum()) + 12.0 * m + cuda_describe._PAIRS.nbytes + 36.0 * m
-        b_ms, _, by_ms, op_ms = bound(desc_bytes, m * (2 * 2 * 1017 + 2 * 256), F32_OPS_PER_S)
+        r = roof(*desc_roof.counts(blur, origins), F32_OPS_PER_S)
         q = torch.round(cuda_describe.extract_patches_plain(blur, origins).reshape(m, -1))
         steer = cuda_describe._steer_w(q.device)
         ms = device_ms(lambda: cuda_describe.describe_cuda(blur, origins))
@@ -680,12 +597,11 @@ def frontend_levels(frames: torch.Tensor, k: int, label: str) -> tuple[dict, dic
         desc_r["call_ms"] += call_ms(lambda: cuda_describe.describe_cuda(blur, origins))
         desc_r["plain_ms"] += device_ms(lambda: cuda_describe.describe_plain(blur, origins))
         desc_r["steer_matmul_ms"] += device_ms(lambda: q @ steer)
-        desc_r["bound_ms"] += b_ms
-        desc_r["bytes_ms"] += by_ms
-        desc_r["ops_ms"] += op_ms
+        for f in ("bound_ms", "bytes_ms", "ops_ms"):
+            desc_r[f] += r[f]
         desc_r["patch_mb"] += m * cuda_describe.PATCH**2 * 4 / 1e6
         log(f"orb_describe {label} level {l}: {m} keypoints, words equal to plain, {differ} angles differ "
-            f"(max {float((ak - ap).abs().max())}), no bin differs; kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+            f"(max {float((ak - ap).abs().max())}), no bin differs; kernel {ms:.4f} ms, bound {r['bound_ms']:.4f} ms")
     return fast_r, desc_r
 
 
@@ -699,7 +615,7 @@ def match_case(label: str, da, db, va, vb) -> dict:
     p, k = args[0].shape[0], args[0].shape[1]
     ms = device_ms(lambda: cuda_match.match_reductions_cuda(*args))
     plain_ms = device_ms(lambda: cuda_match.match_reductions_plain(*args), reps=3, warmup=1)
-    b_ms = match_bound(p, k)[0]
+    b_ms = roof(*match_roof.counts(p, k), INT8_OPS_PER_S)["bound_ms"]
     log(f"match {label} P={p} K={k}: kernel {ms:.4f} ms, int8 bound {b_ms:.4f} ms ({b_ms / ms:.3f}), "
         f"plain {plain_ms:.4f} ms")
     return dict(p=p, k=k, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, share=b_ms / ms, max_abs_err=err)
@@ -728,7 +644,7 @@ def phase_kernels(seq):
     match_err = max(check_match("real K=512", da, db, va, vb), check_match("random K=2048", *rand_case(4, 2048)))
     p, km = da.shape[0], da.shape[1]
     clock_now, clock_max = sm_clocks_mhz()
-    b_ms, by, by_ms, op_ms = match_bound(p, km)
+    match_r = roof(*match_roof.counts(p, km), INT8_OPS_PER_S)
     # The same distances as 32-bit XOR + popcount pairs at 16 popcounts per clock per SM.
     popc_ms = p * km * km * 8 / (POPC_PER_CLOCK_PER_SM * N_SMS * clock_max * 1e6) * 1e3
     a_pm1 = cuda_match.unpack_bits_pm1(da, torch.bfloat16)
@@ -741,7 +657,7 @@ def phase_kernels(seq):
         case = rand_case(sp, sk)
         check_match(f"sweep P={sp} K={sk}", *case)
         s_ms = device_ms(lambda: cuda_match.match_reductions_cuda(*case))
-        s_bound = match_bound(sp, sk)[0]
+        s_bound = roof(*match_roof.counts(sp, sk), INT8_OPS_PER_S)["bound_ms"]
         sweep.append(dict(p=sp, k=sk, ms=s_ms, bound_ms=s_bound, share=s_bound / s_ms))
         log(f"match sweep P={sp} K={sk}: kernel {s_ms:.4f} ms, int8 bound {s_bound:.4f} ms ({s_bound / s_ms:.3f})")
     results = {
@@ -752,7 +668,7 @@ def phase_kernels(seq):
             ms=device_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
             call_ms=call_ms(lambda: cuda_match.match_reductions_cuda(da, db, va, vb)),
             plain_ms=device_ms(lambda: cuda_match.match_reductions_plain(da, db, va, vb)),
-            bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms, popc_bound_ms=popc_ms,
+            **match_r, popc_bound_ms=popc_ms,
             matmul_ms=matmul_ms, empty_launch_ms=floor_ms, k_sweep=sweep,
             sm_clock_mhz=clock_now, sm_clock_max_mhz=clock_max,
             source="droplet_visual_odometry_tpu_torch/csrc/hamming_match.cu",
@@ -947,12 +863,12 @@ def pcg_case(label: str, graph, pg_cfg) -> dict:
     case["plain_ms"] = device_ms(lambda: graphs.run("pcg_plain_alone", plain_body, system, args, B.device), reps=5)
     case["us_per_iter"] = case["ms"] * 1e3 / max(int(live), 1)
     bytes_moved = sum(t.numel() * t.element_size() for t in system) + x.numel() * 4 + 4
-    b_ms, by, by_ms, op_ms = bound(bytes_moved, int(live) * (90 * E + 160 * M), F32_OPS_PER_S)
-    case.update(bound_ms=b_ms, bound_by=by, bytes_ms=by_ms, ops_ms=op_ms, share=b_ms / case["ms"])
+    case.update(roof(bytes_moved, int(live) * (90 * E + 160 * M), F32_OPS_PER_S))
+    case["share"] = case["bound_ms"] / case["ms"]
     log(f"pcg {label}: {case['nodes']} nodes, {case['edges']} real edges in the bucket {M}x{E} on "
         f"{case['blocks'][0]} block(s) of {case['blocks'][1]} warps; kernel {case['ms']:.4f} ms "
         f"({case['us_per_iter']:.2f} us an iteration, one call {case['call_ms']:.4f} ms), plain loop captured "
-        f"{case['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({by}); live {case['live']}/{case['live_plain']}/"
+        f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.6f} ms ({case['bound_by']}); live {case['live']}/{case['live_plain']}/"
         f"{case['live_f64']}; x vs float64 {case['err_f64']:.2e} (f32 plain loop {case['err_plain_f64']:.2e}, "
         f"kernel vs plain {case['err_kernel_plain']:.2e}); float64 with the strongest edge dropped "
         f"{case['err_dropped_edge']:.2e}, with the gauge free {case['err_free_gauge']:.2e}; tolerance {PCG_TOL}")
@@ -1664,28 +1580,14 @@ def within(tol: float, *fields: str):
     return check
 
 
-def optimize_whole_loop(graph, cfg):
-    """pose_graph.optimize with its whole GN loop (cfg.iters GN steps, each
-    with its CG steps) captured as one graph: the other form of the
-    program, against optimize's one GN step a replay."""
-    from droplet_visual_odometry_tpu_torch.backend import pose_graph
-    from droplet_visual_odometry_tpu_torch.utils import graphs
-
-    def body(*tensors):
-        return pose_graph.optimize_eager(pose_graph.PoseGraph(*tensors), cfg)
-
-    return graphs.run("optimize_loop", body, tuple(graph), cfg, graph.poses.device)
-
-
 def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     """Phase G: the JAX package's four compiled programs as CUDA graphs
     (utils/graphs.py), each captured afresh and replayed at the main path's
     shapes and held against its eager twin: run_sequence on the bench
     workload (N = 24) and on a stream chunk (N = 257, the stream cell's
     first chunk) bit for bit; pose_graph.optimize on phase 5's padded graph
-    (the whole GN loop as one graph, and one GN step replayed per
-    iteration, the two timed in turns) and run_ba on phase 6's windows (the
-    whole LM loop) within GRAPH_TOL, with refine_trajectory's accepted
+    (one GN step replayed per iteration) and run_ba on phase 6's windows
+    (the whole LM loop) within GRAPH_TOL, with refine_trajectory's accepted
     windows equal; loop-closure verification at phase 5's P = 128, K = 1024
     bit for bit. Each row: capture wall, replay wall, eager wall, device
     span, graph memory, launches captured. Then op_by_op_rows."""
@@ -1724,7 +1626,7 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
 
     d = pg["inputs"]
 
-    # pose_graph.optimize on phase 5's padded graph: the whole loop, then one GN step a replay.
+    # pose_graph.optimize on phase 5's padded graph, one GN step a replay.
     graph, cfg_pg = pg["graph"], pg["inputs"]["cfg"].pg
     pg_check = within(GRAPH_TOL, "poses", "final_cost")
     shape = (f"{tuple(graph.poses.shape)[0]} nodes, {graph.edge_i.shape[0]} edges, {cfg_pg.iters} GN x "
@@ -1732,17 +1634,6 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     rows["optimize"] = program_row(
         f"pose_graph.optimize, one GN step a replay ({shape})", lambda: pose_graph.optimize(graph, cfg_pg),
         lambda: pose_graph.optimize_eager(graph, cfg_pg), pg_check)
-    rows["optimize_whole_loop"] = program_row(
-        f"pose_graph.optimize, the whole GN loop as one graph ({shape})", lambda: optimize_whole_loop(graph, cfg_pg),
-        lambda: pose_graph.optimize_eager(graph, cfg_pg), pg_check)
-    # The two forms in turns (loop, step, step, loop), each turn the median of 3 calls.
-    pg_turns = {"loop": [], "step": []}
-    for name in ("loop", "step", "step", "loop"):
-        fn = optimize_whole_loop if name == "loop" else pose_graph.optimize
-        pg_turns[name].append(wall_ms(lambda: fn(graph, cfg_pg), reps=3))
-    rows["optimize_turns_ms"] = pg_turns
-    log(f"G optimize's two forms in turns: the whole loop {pg_turns['loop']} ms, one GN step a replay "
-        f"{pg_turns['step']} ms")
 
     # pose_graph_trajectory through the graph against the same call op by op.
     pga = (d["frames"], d["vo_abs"], d["traj"].n_inliers, d["corners"], loop_seq.marker_present, d["K"], d["L"],
@@ -2349,16 +2240,16 @@ def check_online_pushes(seq, cfg, label: str, n_push: int) -> tuple:
     features and draws); returns (engine, the results of every push from
     the arming one on, the memory the first armed push added: static
     buffers and the graph's pool)."""
-    from droplet_visual_odometry_tpu_torch.bench import marker_detections
+    from droplet_visual_odometry_tpu_torch.groundtruth import frame_detections
 
     vo = online_engine(seq, cfg)
-    armed = vo.push(seq.timestamps[0], seq.frames[0], marker_detections(seq, 0))
+    armed = vo.push(seq.timestamps[0], seq.frames[0], frame_detections(seq, 0))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     results = [armed]
     for i in range(1, n_push + 1):
-        dets = marker_detections(seq, i)
+        dets = frame_detections(seq, i)
         want = vo.step_eager(seq.frames[i], dets)
         r = vo.push(seq.timestamps[i], seq.frames[i], dets)
         if i == 1:  # the capture push; what stays reserved after empty_cache is the graph's pool and the buffers
@@ -2378,7 +2269,7 @@ def check_online_pushes(seq, cfg, label: str, n_push: int) -> tuple:
 
 
 def phase_online(seq, none_traj, kernels) -> dict:
-    """Phase O, OnlineVO: the bench workload's 24 frames pushed with their
+    """Phase O, OnlineVO: SEQ_CONFIG's 24 frames pushed with their
     marker detections (ORB, VOConfig()), every graph replay held against
     the eager step bit for bit; match counts against run_sequence on the
     same frames, the chained pose against its chain with the same per-step
@@ -2388,11 +2279,13 @@ def phase_online(seq, none_traj, kernels) -> dict:
     the three kernels at the push's shapes against their twins; then one
     SIFT engine's pushes against its eager step."""
     from droplet_visual_odometry_tpu_torch import parity
-    from droplet_visual_odometry_tpu_torch.bench import marker_detections
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig, run_sequence
     from droplet_visual_odometry_tpu_torch.frontend.features import detect_and_describe
+    from droplet_visual_odometry_tpu_torch.groundtruth import frame_detections
     from droplet_visual_odometry_tpu_torch.utils import threefry
 
+    if not np.all(seq.marker_present):  # every push carries its frame's marker, as a live node's would
+        raise AssertionError(f"frames {np.flatnonzero(~np.asarray(seq.marker_present)).tolist()} show no marker")
     cfg = VOConfig()
     n = len(seq)
     reset_launches()
@@ -2427,10 +2320,10 @@ def phase_online(seq, none_traj, kernels) -> dict:
     # traces graph replays incompletely). It counts the gaps between the graph's kernels as busy, so
     # 1 - span / wall is a lower bound on a push's idle share.
     vo = online_engine(seq, cfg)
-    vo.push(seq.timestamps[0], seq.frames[0], marker_detections(seq, 0))
-    vo.push(seq.timestamps[1], seq.frames[1], marker_detections(seq, 1))
+    vo.push(seq.timestamps[0], seq.frames[0], frame_detections(seq, 0))
+    vo.push(seq.timestamps[1], seq.frames[1], frame_detections(seq, 1))
     order = [2 + i % (n - 2) for i in range(ONLINE_TIMED)]
-    dets = {i: marker_detections(seq, i) for i in set(order)}
+    dets = {i: frame_detections(seq, i) for i in set(order)}
     graph, events = vo._graph, []
 
     def timed_replay():
@@ -2885,46 +2778,6 @@ def phase_mesh(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
-def phase_bench(seq) -> tuple[dict, dict]:
-    """Phase B, the port's bench harness (droplet_visual_odometry_tpu_torch/bench.py)
-    on the card, in this process on the bench workload already rendered (its
-    build_sequence's): the default mode (the live OpenCV baseline, then
-    run_sequence with seed 0's draws, one warm-up and the mean of 5 runs;
-    the kernels' launch counts of that mode), --online (OnlineVO push
-    latency, device-resident and host frames) and --stream over
-    BENCH_STREAM_FRAMES frames through a VOSTORE1 store the harness writes
-    in a temporary directory. Prints each JSON line; returns them and the
-    launches."""
-    from droplet_visual_odometry_tpu_torch import bench
-
-    t0 = time.perf_counter()
-    reset_launches()
-    headline = bench.bench_headline(seq, "cuda")
-    torch.cuda.synchronize()
-    launches = read_launches()
-    # The warm-up run captures run_sequence's program; the timed runs replay it.
-    want = {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS, "hamming_match": CAPTURE_TICKS,
-            "pose_graph_pcg": 0}
-    if launches != want:
-        raise AssertionError(f"bench: expected {want} launches (one capture, then replays), got {launches}")
-    online = bench.bench_online(seq, "cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        stream = bench.bench_stream(seq, store=os.path.join(tmp, "bench.vost"), n_total=BENCH_STREAM_FRAMES,
-                                    device="cuda")
-    lines = dict(headline=headline, online=online, stream=stream)
-    for name, line in lines.items():
-        print(json.dumps(line), flush=True)
-        keys = {"metric", "value", "unit", "backend", "device", "power_limit"}
-        if not keys <= set(line) or line["backend"] != "cuda" or not np.isfinite(line["value"]):
-            raise AssertionError(f"bench {name} line: {line}")
-    if stream["ok_fraction"] < 0.95:
-        raise AssertionError(f"bench --stream: ok fraction {stream['ok_fraction']}")
-    wall = time.perf_counter() - t0
-    log(f"bench: phase B {wall:.1f} s; {headline['value']:.2f} frames/s, vs_baseline {headline['vs_baseline']:.3f}; "
-        f"push {online['value']:.3f} ms median; stream {stream['value']:.2f} frames/s; launches {launches}")
-    return dict(lines, wall_s=wall), launches
-
-
 def device_profile(call, runs: int, top: int) -> tuple[dict, list]:
     """torch.profiler over `runs` warm calls: host ms per run, CUDA kernels
     per run, device busy ms per run, device idle share and the top kernels
@@ -3046,7 +2899,6 @@ def main() -> int:
     log(json.dumps({"parity": par}))
     online = phase_online(seq, none_traj, kernels)
     log(json.dumps({"online": online}))
-    _, launches_bench = phase_bench(seq)
     mesh = phase_mesh(loop_seq, pg, ba, kernels)
     log(json.dumps({"mesh": mesh}))
     if opts.profile:
@@ -3060,7 +2912,7 @@ def main() -> int:
     # "online" is per push: the launches captured in the push's graph, which every replay runs.
     by_path = {"none": launches_none, "pose_graph": pg["launches"], "ba": ba["launches"], "stream": stream["launches"],
                "cli": ingest["launches"], "online": online["launches_per_push"], "mesh": mesh["launches"],
-               "parity": par["launches"], "bench": launches_bench,
+               "parity": par["launches"],
                **{m: float_modes[m]["launches"] for m in FLOAT_MODES}}
     rows = [
         dict(r, name=name, route="cuda", replaces=REPLACES[name], launches=stream["launches"][name],

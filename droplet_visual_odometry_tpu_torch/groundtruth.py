@@ -190,3 +190,15 @@ def detections_from_arrays(
         quaternions=torch.as_tensor(np.asarray(quaternions, np.float32)),
         corners=torch.as_tensor(np.asarray(corners, np.float32)),
     )
+
+
+def frame_detections(seq, i: int) -> MarkerDetections | None:
+    """Frame i of a sequence as the one-frame MarkerDetections a live push
+    gets (M = 1): marker id 0 at the frame's marker pose (bTm,
+    so cTm with use_base_link=False) and corners; None where the frame
+    shows no marker."""
+    if not seq.marker_present[i]:
+        return None
+    t, q = se3.to_translation_quaternion(torch.as_tensor(np.asarray(seq.marker_poses[i], np.float32)))
+    return detections_from_arrays(np.zeros((1, 1), np.int32), t.numpy()[None, None],
+                                  q.numpy()[None, None], np.asarray(seq.marker_corners[i])[None, None])

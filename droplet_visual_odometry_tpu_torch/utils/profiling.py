@@ -1,5 +1,5 @@
 """The port's recorder: spans, counts and device intervals of the shipped
-path, plus the stage timer and torch.profiler capture of the tools.
+path, and torch.profiler capture of a block.
 
     with profiling.span("loop.verify", device=dev, slots=n) as s:
         ...
@@ -42,11 +42,9 @@ slower, 1,300). DVO_TRACE=0 in the environment, read at
 import, makes `span` and `device_stage` shared no-ops: nothing is recorded
 and no event is made.
 
-Besides: `StageTimes` (device-synchronised walls per named stage, for the
-bench harness's eager stages), `timed`, `frames_per_second`, and
-`trace(log_dir)`, which records a block with torch.profiler and writes its
-Chrome trace with the recorder's spans of the block laid on the
-profiler's clock.
+Besides: `trace(log_dir)`, which records a block with torch.profiler and
+writes its Chrome trace with the recorder's spans of the block laid on
+the profiler's clock.
 """
 
 from __future__ import annotations
@@ -60,7 +58,6 @@ import math
 import os
 import threading
 import time
-from collections import defaultdict
 from typing import Any, Callable, Iterator
 
 import torch
@@ -341,55 +338,11 @@ def snapshot(t0: float | None = None, t1: float | None = None) -> list[Record]:
     return RECORDER.snapshot(t0, t1)
 
 
-# -- the tools' stage timer ------------------------------------------------------
-
-class StageTimes:
-    """Accumulates wall-clock per named stage. Not thread-safe by design:
-    one registry per pipeline run."""
-
-    def __init__(self) -> None:
-        self.total_s: dict[str, float] = defaultdict(float)
-        self.calls: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync: bool = True) -> Iterator[None]:
-        """Time a block. With sync=True (default) outstanding device work is
-        drained first and after, so the block's time is attributable to it."""
-        if sync:
-            _synchronize_all_devices()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync:
-                _synchronize_all_devices()
-            self.total_s[name] += time.perf_counter() - t0
-            self.calls[name] += 1
-
-    def report(self) -> dict[str, dict[str, float]]:
-        return {
-            name: {"total_s": self.total_s[name], "calls": self.calls[name]}
-            for name in sorted(self.total_s)
-        }
-
-    def pretty(self) -> str:
-        rows = [
-            f"  {name:<28s} {v['total_s']*1e3:10.2f} ms  /{v['calls']} calls"
-            for name, v in self.report().items()
-        ]
-        return "stage timings:\n" + "\n".join(rows) if rows else "stage timings: (none)"
-
-
 def _synchronize_all_devices() -> None:
     # CPU ops run synchronously; each card's queue is drained.
     if torch.cuda.is_available():
         for d in range(torch.cuda.device_count()):
             torch.cuda.synchronize(d)
-
-
-def frames_per_second(n_frames: int, seconds: float) -> float:
-    """The north-star throughput metric: frames/s."""
-    return n_frames / max(seconds, 1e-12)
 
 
 def _chrome_events(records: list[Record], to_us: Callable[[float], float]) -> list[dict]:
@@ -440,14 +393,3 @@ def trace(log_dir: str) -> Iterator[None]:
     doc["traceEvents"] += _chrome_events(records, lambda t: ts0 + (t - host_ref) * 1e6)
     with open(path, "w") as f:
         json.dump(doc, f)
-
-
-def timed(fn, *args, sync: bool = True, **kwargs):
-    """Run fn(*args, **kwargs), return (result, seconds) with device sync."""
-    if sync:
-        _synchronize_all_devices()
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    if sync:
-        _synchronize_all_devices()
-    return out, time.perf_counter() - t0

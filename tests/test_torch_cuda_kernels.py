@@ -562,16 +562,6 @@ def _stream_sequence():
     return synthetic.render_sequence(synthetic.SyntheticConfig(n_frames=8, width=640, height=480, n_landmarks=350))
 
 
-def _stream_detections(seq, i):
-    """Frame i's marker as a 1-frame MarkerDetections (camera frame: cTm)."""
-    from droplet_visual_odometry_tpu_torch import groundtruth
-    from droplet_visual_odometry_tpu_torch.core import se3
-
-    t, q = se3.to_translation_quaternion(torch.from_numpy(np.asarray(seq.marker_poses[i], np.float32)))
-    return groundtruth.detections_from_arrays(np.zeros((1, 1), np.int32), t.numpy()[None, None],
-                                              q.numpy()[None, None], seq.marker_corners[i][None, None])
-
-
 @pytest.mark.parametrize("frontend", ["orb", "sift"])
 def test_online_vo_graph_replay_equals_eager(cuda_device, frontend):
     """OnlineVO on the card captures its push as one CUDA graph at the first
@@ -586,7 +576,7 @@ def test_online_vo_graph_replay_equals_eager(cuda_device, frontend):
     cfg = VOConfig() if frontend == "orb" else VOConfig(frontend="sift", match_mode="ratio", dog_threshold=0.5)
     vo = stream.OnlineVO(np.asarray(seq.camera.K), seq.real_marker_length, cfg=cfg,
                          gt_cfg=groundtruth.GroundTruthConfig(use_base_link=False))
-    dets = lambda i: _stream_detections(seq, i)
+    dets = lambda i: groundtruth.frame_detections(seq, i)
     vo.push(seq.timestamps[0], seq.frames[0], dets(0))
     counts = []
     for i in range(1, len(seq)):
@@ -619,16 +609,16 @@ def test_online_vo_replay_survives_constant_cache_churn(cuda_device):
     seq = _stream_sequence()
     vo = stream.OnlineVO(np.asarray(seq.camera.K), seq.real_marker_length,
                          gt_cfg=groundtruth.GroundTruthConfig(use_base_link=False))
-    vo.push(seq.timestamps[0], seq.frames[0], _stream_detections(seq, 0))
-    vo.push(seq.timestamps[1], seq.frames[1], _stream_detections(seq, 1))  # the capture
+    vo.push(seq.timestamps[0], seq.frames[0], groundtruth.frame_detections(seq, 0))
+    vo.push(seq.timestamps[1], seq.frames[1], groundtruth.frame_detections(seq, 1))  # the capture
     for n in range(100):
         filters.resize_bilinear(torch.ones((1, 300 + n, 200 + n), device=cuda_device), 150 + n, 100 + n)
     shapes = features.level_shapes(480, 640, features.N_LEVELS, features.SCALE_FACTOR)
     garbage = [torch.full((a[d], b[d]), 1e30, device=cuda_device)  # the shapes of the pyramid's resize weights
                for a, b in zip(shapes, shapes[1:]) for d in (0, 1) for _ in range(8)]
     for i in range(2, len(seq)):
-        want = vo.step_eager(seq.frames[i], _stream_detections(seq, i))
-        r = vo.push(seq.timestamps[i], seq.frames[i], _stream_detections(seq, i))
+        want = vo.step_eager(seq.frames[i], groundtruth.frame_detections(seq, i))
+        r = vo.push(seq.timestamps[i], seq.frames[i], groundtruth.frame_detections(seq, i))
         assert np.array_equal(want[:16].numpy().reshape(4, 4), r.rel), i
         assert (int(want[16]), bool(want[17]), int(want[18])) == (r.n_inliers, r.ok, r.n_matches), i
     del garbage

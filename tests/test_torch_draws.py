@@ -19,7 +19,6 @@ import jax
 
 from droplet_visual_odometry_tpu_torch import groundtruth as tgt
 from droplet_visual_odometry_tpu_torch import stream
-from droplet_visual_odometry_tpu_torch.core import se3 as tse3
 from droplet_visual_odometry_tpu_torch.data import synthetic as tsynth
 from droplet_visual_odometry_tpu_torch.estimation import vo as tvo
 from droplet_visual_odometry_tpu_torch.estimation.ransac import RansacConfig
@@ -135,11 +134,6 @@ def _checkpointed(seq):
 
 
 def _pushes(seq):
-    def dets(i):
-        t, q = tse3.to_translation_quaternion(torch.from_numpy(np.asarray(seq.marker_poses[i], np.float32)))
-        return tgt.detections_from_arrays(np.asarray([[0]], np.int32), t.numpy()[None, None], q.numpy()[None, None],
-                                          np.asarray(seq.marker_corners[i])[None, None])
-
     def draws(step):  # stream.py:112
         u_hyp, u_lo = jax_uniforms([jax.random.fold_in(jax.random.PRNGKey(7), np.uint32(step))])
         return u_hyp, u_lo[:, 0]
@@ -148,7 +142,7 @@ def _pushes(seq):
     for kw in (dict(seed=7), dict(draws=draws)):
         vo = OnlineVO(K=np.asarray(seq.camera.K), real_marker_length=seq.real_marker_length,
                       gt_cfg=tgt.GroundTruthConfig(use_base_link=False), device="cpu", **kw)
-        rs = [vo.push(seq.timestamps[i], seq.frames[i], dets(i)) for i in range(len(seq))]
+        rs = [vo.push(seq.timestamps[i], seq.frames[i], tgt.frame_detections(seq, i)) for i in range(len(seq))]
         assert all(r.ok for r in rs[1:])
         out.append([np.stack([r.rel for r in rs]), np.stack([r.pose for r in rs]), [r.n_inliers for r in rs]])
     return out

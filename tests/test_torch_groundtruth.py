@@ -286,18 +286,6 @@ def test_gt_vo_difference_equals_reference():
 # --------------------------------------------------------------------------
 
 
-def test_stage_timer_and_timed():
-    times = profiling.StageTimes()
-    for _ in range(2):
-        with times.stage("a"):
-            torch.ones(8).sum()
-    rep = times.report()
-    assert rep["a"]["calls"] == 2 and rep["a"]["total_s"] >= 0 and "a" in times.pretty()
-    out, secs = profiling.timed(lambda x: x * 2, torch.ones(4))
-    assert torch.equal(out, torch.full((4,), 2.0)) and secs >= 0
-    assert profiling.frames_per_second(10, 2.0) == 5.0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "prof")):
         torch.ones(64, 64) @ torch.ones(64, 64)

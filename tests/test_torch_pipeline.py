@@ -303,8 +303,7 @@ def test_load_calibration_equal(tmp_path, controlled):
 
 def test_port_imports_without_jax():
     """With jax and the repo-root parity.py and bench.py blocked, the whole
-    port (its parity and bench harnesses included) imports and scores a CPU
-    tensor."""
+    port (its parity harness included) imports and scores a CPU tensor."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -317,7 +316,7 @@ def test_port_imports_without_jax():
         "from droplet_visual_odometry_tpu_torch.frontend import fast\n"
         "s = fast.fast_score_cuda(torch.full((1, 32, 32), 10.0), 20.0, 9)\n"
         "assert s.shape == (1, 32, 32) and not any(k.startswith('jax') and sys.modules[k] for k in sys.modules)\n"
-        "assert {'droplet_visual_odometry_tpu_torch.parity', 'droplet_visual_odometry_tpu_torch.bench'} <= set(sys.modules)\n"
+        "assert 'droplet_visual_odometry_tpu_torch.parity' in sys.modules\n"
         "assert not any(k.split('.')[0] == 'droplet_visual_odometry_tpu' for k in sys.modules)\n"
         "print('ok')\n"
     )

@@ -46,15 +46,6 @@ def seq():
     return tsynth.render_sequence(tsynth.SyntheticConfig(**SEQ_CFG))
 
 
-def _dets_for(seq, i, ref_id=0):
-    """Frame i's marker as a 1-frame MarkerDetections (M=1) of the port."""
-    if not seq.marker_present[i]:
-        return None
-    t, q = tse3.to_translation_quaternion(torch.from_numpy(np.asarray(seq.marker_poses[i], np.float32)))
-    return tgt.detections_from_arrays(np.asarray([[ref_id]], np.int32), t.numpy()[None, None],
-                                      q.numpy()[None, None], np.asarray(seq.marker_corners[i])[None, None])
-
-
 def _engine(seq, cfg=CFG, **kw):
     return OnlineVO(K=np.asarray(seq.camera.K), real_marker_length=seq.real_marker_length, reference_id=0, cfg=cfg,
                     gt_cfg=tgt.GroundTruthConfig(use_base_link=False), device="cpu", **kw)
@@ -84,11 +75,11 @@ def test_stream_gating_and_tracking(seq):
     vo = _engine(seq)
     r0 = vo.push(seq.timestamps[0], seq.frames[0], None)
     assert not r0.armed and not vo.armed
-    r1 = vo.push(seq.timestamps[0], seq.frames[0], _dets_for(seq, 0))
+    r1 = vo.push(seq.timestamps[0], seq.frames[0], tgt.frame_detections(seq, 0))
     assert r1.armed and vo.armed
     np.testing.assert_allclose(r1.pose, seq.marker_poses[0], atol=1e-5)
     assert r1.gt_pose is not None
-    oks = [vo.push(seq.timestamps[i], seq.frames[i], _dets_for(seq, i)).ok for i in range(1, len(seq))]
+    oks = [vo.push(seq.timestamps[i], seq.frames[i], tgt.frame_detections(seq, i)).ok for i in range(1, len(seq))]
     assert np.mean(oks) > 0.6
     est_cam = np.linalg.inv(vo.pose)[:3, 3]
     gt_cam = np.linalg.inv(np.asarray(seq.marker_poses[-1], np.float64))[:3, 3]
@@ -100,8 +91,8 @@ def test_stream_pose_callbacks():
     vo = _engine(small, VOConfig(n_keypoints=64, ransac=RansacConfig(n_hypotheses=64, lo_hypotheses=16)))
     seen = []
     vo.on_pose.append(lambda ts, pose: seen.append((ts, pose.shape)))
-    vo.push(small.timestamps[0], small.frames[0], _dets_for(small, 0))
-    vo.push(small.timestamps[1], small.frames[1], _dets_for(small, 1))
+    vo.push(small.timestamps[0], small.frames[0], tgt.frame_detections(small, 0))
+    vo.push(small.timestamps[1], small.frames[1], tgt.frame_detections(small, 1))
     assert len(seen) == 2 and seen[0][1] == (4, 4)
 
 
@@ -170,14 +161,14 @@ def test_online_vo_matches_reference_with_its_draws(seq):
     vo = _engine(seq, draws=jax_push_draws(0))
 
     def jdets(i):
-        d = _dets_for(seq, i)
+        d = tgt.frame_detections(seq, i)
         return None if d is None else jgt.detections_from_arrays(*(a.numpy() for a in d))
 
     pushes = [(0, False)] + [(i, True) for i in range(len(seq))]
     rows = []
     for i, with_marker in pushes:
         jr = jvo.push(jseq.timestamps[i], jseq.frames[i], jdets(i) if with_marker else None)
-        tr = vo.push(seq.timestamps[i], seq.frames[i], _dets_for(seq, i) if with_marker else None)
+        tr = vo.push(seq.timestamps[i], seq.frames[i], tgt.frame_detections(seq, i) if with_marker else None)
         assert (tr.armed, tr.ok) == (jr.armed, jr.ok), i
         rows.append((tr, jr))
     ni = np.array([[t.n_inliers, j.n_inliers] for t, j in rows[2:]])
@@ -195,10 +186,10 @@ def test_step_eager_is_the_next_push(seq):
     equal bit for bit to the push that follows, with the per-step keys
     fold_in(PRNGKey(seed), step) of the reference (stream.py:112)."""
     vo = _engine(seq)
-    vo.push(seq.timestamps[0], seq.frames[0], _dets_for(seq, 0))
+    vo.push(seq.timestamps[0], seq.frames[0], tgt.frame_detections(seq, 0))
     for i in (1, 2):
-        want = vo.step_eager(seq.frames[i], _dets_for(seq, i))
-        r = vo.push(seq.timestamps[i], seq.frames[i], _dets_for(seq, i))
+        want = vo.step_eager(seq.frames[i], tgt.frame_detections(seq, i))
+        r = vo.push(seq.timestamps[i], seq.frames[i], tgt.frame_detections(seq, i))
         np.testing.assert_array_equal(want[:16].numpy().reshape(4, 4), r.rel)
         assert (int(want[16]), bool(want[17])) == (r.n_inliers, r.ok)
     for step in (1, 2):
@@ -214,15 +205,34 @@ def test_frames_keep_the_first_shape_and_dtype(frame):
     does not advance."""
     small = tsynth.render_sequence(tsynth.SyntheticConfig(n_frames=3, width=160, height=120, n_landmarks=80))
     vo = _engine(small, VOConfig(n_keypoints=64, ransac=RansacConfig(n_hypotheses=64, lo_hypotheses=16)))
-    vo.push(small.timestamps[0], small.frames[0], _dets_for(small, 0))
+    vo.push(small.timestamps[0], small.frames[0], tgt.frame_detections(small, 0))
     bad = {"float32": small.frames[1].astype(np.float32), "shape": small.frames[1][:-8],
            "tensor_float32": torch.from_numpy(small.frames[1]).float()}[frame]
-    for call in (lambda: vo.step_eager(bad, _dets_for(small, 1)),
-                 lambda: vo.push(small.timestamps[1], bad, _dets_for(small, 1))):
+    for call in (lambda: vo.step_eager(bad, tgt.frame_detections(small, 1)),
+                 lambda: vo.push(small.timestamps[1], bad, tgt.frame_detections(small, 1))):
         with pytest.raises(ValueError, match="the engine's frames are"):
             call()
     assert vo._step == 0
-    assert vo.push(small.timestamps[1], torch.from_numpy(small.frames[1]), _dets_for(small, 1)).armed
+    assert vo.push(small.timestamps[1], torch.from_numpy(small.frames[1]), tgt.frame_detections(small, 1)).armed
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_host_arrays_and_tensors_push_alike(dtype):
+    """A live node hands the engine host arrays or tensors: the same frames
+    pushed either way give the same relative poses, chained poses, inlier
+    and match counts bit for bit."""
+    small = tsynth.render_sequence(tsynth.SyntheticConfig(n_frames=4, width=160, height=120, n_landmarks=80))
+    cfg = VOConfig(n_keypoints=64, ransac=RansacConfig(n_hypotheses=64, lo_hypotheses=16))
+    frames = small.frames.astype(dtype)
+    host, tensors = _engine(small, cfg), _engine(small, cfg)
+    for i in range(len(small)):
+        dets = tgt.frame_detections(small, i)
+        a = host.push(small.timestamps[i], frames[i], dets)
+        b = tensors.push(small.timestamps[i], torch.from_numpy(frames[i]), dets)
+        assert (a.armed, a.ok, a.n_inliers, a.n_matches) == (b.armed, b.ok, b.n_inliers, b.n_matches), i
+        np.testing.assert_array_equal(a.rel, b.rel)
+        np.testing.assert_array_equal(a.pose, b.pose)
+    assert host._step == len(small) - 1 and a.n_matches > 0
 
 
 def test_sift_mode_online_vo_tracks(seq):
@@ -232,7 +242,7 @@ def test_sift_mode_online_vo_tracks(seq):
     cfg = VOConfig(frontend="sift", match_mode="ratio", dog_threshold=0.5,
                    ransac=RansacConfig(n_hypotheses=512, lo_hypotheses=128))
     vo = _engine(seq, cfg)
-    oks = [vo.push(seq.timestamps[i], seq.frames[i], _dets_for(seq, i)).ok for i in range(4)]
+    oks = [vo.push(seq.timestamps[i], seq.frames[i], tgt.frame_detections(seq, i)).ok for i in range(4)]
     assert all(oks[1:])
     est = np.linalg.inv(vo.pose.astype(np.float64))[:3, 3]
     gt = np.linalg.inv(np.asarray(seq.marker_poses[3], np.float64))[:3, 3]
@@ -252,6 +262,45 @@ def test_online_vo_defaults_to_cuda(seq):
 # --------------------------------------------------------------------------
 # Ground truth, se3.compose, converters, float global descriptors
 # --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("i", range(SEQ_CFG["n_frames"]))
+def test_frame_detections_round_trip(seq, i):
+    """Frame i as the one-frame detections a push gets (one slot, id 0):
+    the push's ground-truth cTm and marker_pose_to_cTm both give back the
+    frame's marker pose (float32 tolerance through the quaternion), and the
+    push's corners are the frame's."""
+    dets = tgt.frame_detections(seq, i)
+    assert dets.ids.tolist() == [[0]] and dets.translations.shape == (1, 1, 3) and dets.corners.shape == (1, 1, 4, 2)
+    cTm, corners, ok = _engine(seq)._marker_info(dets)
+    assert ok
+    np.testing.assert_allclose(cTm, seq.marker_poses[i], atol=1e-6)
+    np.testing.assert_array_equal(corners, np.asarray(seq.marker_corners[i], np.float32))
+    np.testing.assert_allclose(tgt.marker_pose_to_cTm(dets.translations[0, 0], dets.quaternions[0, 0],
+                                                      tgt.GroundTruthConfig(use_base_link=False)).numpy(),
+                               seq.marker_poses[i], atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["absent", "other_id"])
+def test_frame_detections_without_the_reference_marker(seq, case):
+    """A frame that shows no marker gives None, and an engine pushed it
+    stays unarmed; a marker under another id does not arm an engine that
+    waits for id 0, and arms one that waits for its id at the same pose."""
+    if case == "absent":
+        present = np.asarray(seq.marker_present).copy()
+        present[2] = False
+        gap = dataclasses.replace(seq, marker_present=present)
+        assert tgt.frame_detections(gap, 2) is None and tgt.frame_detections(gap, 3) is not None
+        assert not _engine(seq).push(seq.timestamps[2], seq.frames[2], tgt.frame_detections(gap, 2)).armed
+        return
+    d = tgt.frame_detections(seq, 2)
+    dets = d._replace(ids=torch.full_like(d.ids, 7))
+    assert not _engine(seq).push(seq.timestamps[2], seq.frames[2], dets).armed
+    vo = OnlineVO(K=np.asarray(seq.camera.K), real_marker_length=seq.real_marker_length, reference_id=7, cfg=CFG,
+                  gt_cfg=tgt.GroundTruthConfig(use_base_link=False), device="cpu")
+    r = vo.push(seq.timestamps[2], seq.frames[2], dets)
+    assert r.armed
+    np.testing.assert_allclose(r.gt_pose, seq.marker_poses[2], atol=1e-6)
 
 
 def test_groundtruth_and_compose_agree():

@@ -3,13 +3,15 @@ NVIDIA GPU.
 
     python tools/torch_push_draws.py [--root DIR] [--pushes N] [--engines E]
 
-Imports the port from the checkout DIR (default: the one holding this file),
-renders bench.py's workload (24 frames of 1440x1080, the port's
-bench.build_sequence) and pushes it in ping-pong with its marker detections,
-host uint8 frames as the live node gets them: one pass to arm an engine and
-capture its graph, then N pushes timed one by one (host clock; a push ends
-with its fetch). First the checkout's default engine alone ("default": the
-first engine of the process, the figure to compare across checkouts); then,
+Imports the port from the checkout DIR (default: the one holding this file;
+a checkout whose groundtruth lacks frame_detections, from before the port's
+own bench harness was retired, is not supported), renders chip_smoke.py's
+workload (SEQ_CONFIG: 24 frames of 1440x1080) and pushes it in ping-pong
+with its marker detections, host uint8 frames as the live node gets them:
+one pass to arm an engine and capture its graph, then N pushes timed one
+by one (host clock; a push ends with its fetch). First the checkout's
+default engine alone ("default": the first engine of the process, the
+figure to compare across checkouts); then,
 where the checkout has both forms, E engines of each with their timed
 pushes interleaved push by push (the engines' order reversed every other
 push), so both forms see the same host and card, and no one engine's
@@ -37,7 +39,6 @@ checkouts in one call, in turns (parent, change, change, parent).
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -46,18 +47,9 @@ import time
 
 import numpy as np
 
-_BENCH_PY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "droplet_visual_odometry_tpu_torch", "bench.py")
-
-
-def load_bench():
-    """The port's bench.py of this checkout, loaded by path: its functions
-    import the port lazily, so they run on the package of --root, which
-    may predate bench.py."""
-    spec = importlib.util.spec_from_file_location("port_bench", _BENCH_PY)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from chip_smoke import SEQ_CONFIG  # noqa: E402  the workload, as chip_smoke renders it
 
 
 def in_graph_draws_engine():
@@ -105,7 +97,7 @@ def summary(ms: list[float]) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--root", default=REPO)
     ap.add_argument("--pushes", type=int, default=552, help="timed pushes per engine")
     ap.add_argument("--engines", type=int, default=2, help="engines per form")
     args = ap.parse_args()
@@ -115,6 +107,7 @@ def main() -> int:
 
     import droplet_visual_odometry_tpu_torch as pkg
     from droplet_visual_odometry_tpu_torch import groundtruth, stream
+    from droplet_visual_odometry_tpu_torch.data import synthetic
     from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
     from droplet_visual_odometry_tpu_torch.utils import threefry
 
@@ -122,11 +115,12 @@ def main() -> int:
         raise SystemExit("a CUDA device is required")
     if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(args.root)):
         raise SystemExit(f"imported {pkg.__file__}, not the port under {args.root}")
-    bench = load_bench()
-    seq = bench.build_sequence()
+    seq = synthetic.render_sequence(synthetic.SyntheticConfig(**SEQ_CONFIG))
     n = len(seq)
     order = list(range(n)) + list(range(n - 2, 0, -1))
-    det = [bench.marker_detections(seq, i) for i in range(n)]
+    if not np.all(seq.marker_present):
+        raise SystemExit("every frame of the workload must show its marker")
+    det = [groundtruth.frame_detections(seq, i) for i in range(n)]
     cfg = VOConfig()
 
     def warm_engine(engine=stream.OnlineVO, **kw):
