@@ -55,7 +55,8 @@ Phases (any failure raises, so the exit code is non-zero):
   6. backend "ba", run_experiment(backend="ba") with VOConfig(scale_mode=
      "hold") and the default RefineConfig on the same loop: launch counters
      (FAST and describe once per level on the frames and again on the
-     keyframe stack, the match at least twice: VO and the tracks), windows
+     keyframe stack, the match at least twice: VO and the tracks, the
+     windowed BA kernel once a window run), windows
      run and accepted with their RMS, poses and TUM files, the ATE against
      the JAX package's; the kernels at the path's shapes (the keyframe stack
      at k=512, the match of all its consecutive pairs) and the warm wall of
@@ -80,9 +81,14 @@ Phases (any failure raises, so the exit code is non-zero):
      graph, one GN step a replay, within GRAPH_TOL of optimize_eager, and
      pose_graph_trajectory through the graphs against op by op (loop pairs
      equal, poses within GRAPH_TOL);
-     run_ba on phase 6's windows (the whole LM loop) within GRAPH_TOL of
-     run_ba_eager, and refine_trajectory's accepted windows and poses
-     against op by op; loop-closure verification at P = 128, K = 1024 bit
+     run_ba's captured op-by-op program (run_ba_graph, the whole LM loop)
+     on phase 6's windows within GRAPH_TOL of run_ba_eager; run_ba itself
+     (one launch of csrc/windowed_ba.cu a float64 window) on each window
+     within GRAPH_TOL of run_ba_eager, and at the ba cell's shapes (phase
+     6's keyframes at 1000 keypoints: its first window, W = 8, L = 1000,
+     and its last) against the eager twin and the captured program it
+     replaces (ba_kernel_case); refine_trajectory's accepted windows and
+     poses against op by op; loop-closure verification at P = 128, K = 1024 bit
      for bit against its eager twin. Each program captured afresh: capture
      wall, first call, replay wall, eager wall, the replay's device span
      (CUDA events around graph.replay()), graph memory, launches captured.
@@ -213,6 +219,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark"))
 from roofline import fast_score as fast_roof, hamming_match as match_roof, orb_describe as desc_roof  # noqa: E402
 from vobench.kerneltime import F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, bound_ms, device_ms  # noqa: E402
+
+# NVIDIA's H100 SXM data sheet: float64 outside the tensor cores, at the full 700 W (the windowed BA kernel's rate).
+F64_OPS_PER_S = 34e12
 
 # bench.py:43-56 — the reference's benchmark workload.
 SEQ_CONFIG = dict(
@@ -1101,10 +1110,10 @@ def reset_launches() -> None:
     runs, and its counts show each program's kernels: the counters tick
     where a wrapper's Python runs (a capture's warm-up and the capture
     itself, CAPTURE_TICKS per kernel of the program), never on a replay."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match, cuda_pcg
+    from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_match, cuda_pcg
     from droplet_visual_odometry_tpu_torch.utils import graphs
 
-    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg):
+    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg, cuda_ba):
         mod.LAUNCHES = 0
     graphs.clear()
 
@@ -1155,6 +1164,8 @@ def phase_ba(seq, results) -> dict:
                              f"program, then the keyframe stack op by op), got {launches}")
     if launches["hamming_match"] < CAPTURE_TICKS + 1:
         raise AssertionError(f"expected >= {CAPTURE_TICKS + 1} match launches (captured VO, tracks), got {launches}")
+    if launches["windowed_ba"] != info["windows"]:
+        raise AssertionError(f"expected one windowed BA launch a window run ({info['windows']}), got {launches}")
     if info["windows"] < 1 or not accepted:
         raise AssertionError(f"{info['windows']} BA windows run, {len(accepted)} accepted")
     log(f"BA: {info['n_keyframes']} keyframes, {info['windows']} windows run, accepted {accepted}, "
@@ -1560,6 +1571,50 @@ def eager_call_row(label: str, fn, reps: int = 7) -> dict:
     return row
 
 
+def ba_kernel_case(label: str, window, cfg) -> dict:
+    """The windowed BA kernel on one real float64 window: run_ba (one launch
+    of csrc/windowed_ba.cu) within GRAPH_TOL of run_ba_eager on the card
+    (poses, points, final cost), two launches bit for bit; its device time
+    (device_ms) and one call with its launch (call_ms), against the captured
+    op-by-op program it replaces (run_ba_graph: device time with its input
+    staging and output clones, and one call) and the eager twin's wall,
+    beside its bound: the Schur product (108 FMA a landmark and pose pair
+    w <= v), about 460 FLOPs an observation for its blocks and a
+    (6W)^3 / 3 solve, cfg.iters steps at the float64 rate, or the inputs
+    read and the outputs written once at 3.35 TB/s."""
+    from droplet_visual_odometry_tpu_torch.backend import ba
+    from droplet_visual_odometry_tpu_torch.ops import cuda_ba
+
+    W, L = (int(x) for x in window.obs_mask.shape)
+    before = cuda_ba.LAUNCHES
+    out = ba.run_ba(window, cfg)
+    launches = cuda_ba.LAUNCHES - before
+    again = ba.run_ba(window, cfg)
+    diff = within(GRAPH_TOL, "poses", "points", "final_cost")(out, ba.run_ba_eager(window, cfg))
+    case = dict(window=[W, L], blocks=cuda_ba.plan(W, L), launches=launches, max_diff_eager=diff,
+                repeats_bit_for_bit=all(torch.equal(a, b) for a, b in zip(out, again)),
+                cost=[float(out.initial_cost), float(out.final_cost)])
+    case["ms"] = device_ms(lambda: ba.run_ba(window, cfg))
+    case["call_ms"] = call_ms(lambda: ba.run_ba(window, cfg))
+    case["graph_ms"] = device_ms(lambda: ba.run_ba_graph(window, cfg), reps=5)
+    case["graph_call_ms"] = call_ms(lambda: ba.run_ba_graph(window, cfg), reps=5)
+    case["eager_ms"] = wall_ms(lambda: ba.run_ba_eager(window, cfg), reps=3)
+    n = 6 * W
+    ops = cfg.iters * (L * W * (W + 1) // 2 * 216 + W * L * 460 + n ** 3 / 3)
+    bytes_moved = sum(t.numel() * t.element_size() for t in window) + (W * 16 + L * 3 + 3) * 8
+    case.update(roof(bytes_moved, ops, F64_OPS_PER_S))
+    case["share"] = case["bound_ms"] / case["ms"]
+    log(f"windowed BA kernel, {label} window (W = {W}, L = {L}) on {case['blocks']} blocks: kernel {case['ms']:.4f} ms "
+        f"(one call {case['call_ms']:.4f}), the captured op program {case['graph_ms']:.4f} ms (one call "
+        f"{case['graph_call_ms']:.4f}), eager {case['eager_ms']:.2f} ms; bound {case['bound_ms']:.6f} ms "
+        f"({case['bound_by']}, share {case['share']:.2e}); {launches} launch(es); vs eager {diff:.3e}; repeat bit for "
+        f"bit {case['repeats_bit_for_bit']}; cost {case['cost']}")
+    if launches != 1 or not case["repeats_bit_for_bit"]:
+        raise AssertionError(f"windowed BA kernel, {label} window: {launches} launches, repeat bit for bit "
+                             f"{case['repeats_bit_for_bit']}")
+    return case
+
+
 def equal_fields(a, b) -> float:
     """0.0 if every tensor field of a (or a itself, a tensor) equals b's bit
     for bit, else raise."""
@@ -1586,11 +1641,13 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     shapes and held against its eager twin: run_sequence on the bench
     workload (N = 24) and on a stream chunk (N = 257, the stream cell's
     first chunk) bit for bit; pose_graph.optimize on phase 5's padded graph
-    (one GN step replayed per iteration) and run_ba on phase 6's windows
-    (the whole LM loop) within GRAPH_TOL, with refine_trajectory's accepted
-    windows equal; loop-closure verification at phase 5's P = 128, K = 1024
-    bit for bit. Each row: capture wall, replay wall, eager wall, device
-    span, graph memory, launches captured. Then op_by_op_rows."""
+    (one GN step replayed per iteration) and run_ba_graph on phase 6's
+    windows (the whole LM loop) within GRAPH_TOL, with refine_trajectory's
+    accepted windows equal; loop-closure verification at phase 5's P = 128,
+    K = 1024 bit for bit. Each row: capture wall, replay wall, eager wall,
+    device span, graph memory, launches captured. Then the windowed BA
+    kernel on every window of phase 6 and at the ba cell's shapes
+    (ba_kernel_case), and op_by_op_rows."""
     from droplet_visual_odometry_tpu_torch import pipeline
     from droplet_visual_odometry_tpu_torch.backend import ba, loop_closure, pose_graph, refine
     from droplet_visual_odometry_tpu_torch.estimation import vo
@@ -1663,9 +1720,11 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     for (wshape, lshape), (w, cfg_ba) in sigs.items():
         label = f"W = {wshape[0]}, L = {lshape[0]}"
         ba_rows.append(dict(window=label, loop=program_row(
-            f"run_ba, the whole LM loop ({label}, {cfg_ba.iters} steps)", lambda: ba.run_ba(w, cfg_ba),
+            f"run_ba_graph, the whole LM loop ({label}, {cfg_ba.iters} steps)", lambda: ba.run_ba_graph(w, cfg_ba),
             lambda: ba.run_ba_eager(w, cfg_ba), ba_check)))
     per_window = [ba_check(ba.run_ba(w, c), ba.run_ba_eager(w, c)) for w, c in windows]
+    cell_windows = recorded_ba_windows(ba_run, dataclasses.replace(refine.RefineConfig(), n_keypoints=1000))
+    kernel_rows = [ba_kernel_case(label, *cell_windows[i]) for label, i in (("first", 0), ("last", -1))]
     bd = ba_run["inputs"]
     ref_g, info_bg = refine.refine_trajectory(*bd["args"], **bd["kw"])
     with eager_programs():
@@ -1703,6 +1762,7 @@ def phase_graphs(seq, loop_seq, pg: dict, ba_run: dict, stream_seq) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"G: phase G {wall:.1f} s")
     return dict(rows, run_ba=ba_rows, run_ba_windows=len(windows), run_ba_max_diff=max(per_window),
+                windowed_ba=kernel_rows,
                 pose_graph_trajectory=dict(graph_ms=pgt_ms, eager_ms=pgt_eager_ms, max_diff=pgt_diff),
                 refine_trajectory=dict(graph_ms=rt_ms, eager_ms=rt_eager_ms, max_diff=ref_diff,
                                        accepted=accepted_windows(info_bg)), wall_s=wall)
@@ -2040,7 +2100,7 @@ def phase_ingest(seq, stream: dict, results) -> dict:
         if synth_diff > SYNTH_ATE_TOL or synth["median_matches"] != int(np.median(ref.trajectory.n_matches)):
             raise AssertionError("the synthetic CLI run differs from the in-process run")
         if synth_launches != {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS,
-                              "hamming_match": CAPTURE_TICKS, "pose_graph_pcg": 0}:
+                              "hamming_match": CAPTURE_TICKS, "pose_graph_pcg": 0, "windowed_ba": 0}:
             raise AssertionError(f"synthetic CLI launches {synth_launches}")
 
         # analyze on both TUM directories. It scores every frame of the streams (as the reference's
@@ -2293,7 +2353,8 @@ def phase_online(seq, none_traj, kernels) -> dict:
     armed_pose, results = results[0].pose, results[1:]
     launches = dict(vo.captured_launches)
     n_levels = cfg.n_levels
-    if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1, "pose_graph_pcg": 0}:
+    if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1, "pose_graph_pcg": 0,
+                    "windowed_ba": 0}:
         raise AssertionError(f"expected {n_levels}/{n_levels}/1/0 launches in the push graph, got {launches}")
     nm = np.asarray([r.n_matches for r in results])
 
@@ -2402,12 +2463,14 @@ def mesh_inputs(seq):
     return frames, corners, present, args
 
 
-def recorded_ba_windows(ba: dict) -> list:
-    """Phase 6's real BA windows: refine_trajectory rerun on its inputs with
-    run_ba wrapped to record every window it solves, with its config."""
+def recorded_ba_windows(ba: dict, cfg=None) -> list:
+    """Phase 6's real BA windows: refine_trajectory rerun on its inputs (with
+    RefineConfig cfg in place of its own, where given) with run_ba wrapped
+    to record every window it solves, with its config."""
     from droplet_visual_odometry_tpu_torch.backend import refine
 
     d, windows, run_ba = ba["inputs"], [], refine.ba.run_ba
+    args = d["args"] if cfg is None else (*d["args"][:-1], cfg)
 
     def record(window, cfg):
         windows.append((window, cfg))
@@ -2415,7 +2478,7 @@ def recorded_ba_windows(ba: dict) -> list:
 
     refine.ba.run_ba = record
     try:
-        refine.refine_trajectory(*d["args"], **d["kw"])
+        refine.refine_trajectory(*args, **d["kw"])
     finally:
         refine.ba.run_ba = run_ba
     return windows
@@ -2475,7 +2538,8 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     progs = [p for p in graphs.programs() if p.name == "shard_pair_vo"]
     log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}, "
         f"captured {[p.captured_launches for p in progs]}")
-    per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1, "pose_graph_pcg": 0}
+    per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1, "pose_graph_pcg": 0,
+                  "windowed_ba": 0}
     if launches != {k: CAPTURE_TICKS * v for k, v in per_replay.items()}:
         raise AssertionError(f"expected {CAPTURE_TICKS} x {per_replay} launches (one capture of the 2B frames' "
                              f"program), got {launches}")

@@ -7,8 +7,11 @@ are batched einsums; the landmark blocks Hll are inverted by the unrolled
 3x3 Cholesky of ops/linalg.py and the reduced camera system (6W x 6W) is
 solved densely. The first n_fixed poses are held (gauge). Accept and reject
 are branchless (torch.where) for all cfg.iters steps, so run_ba reads
-nothing back to the host inside its loop, and on the card the whole loop is
-one captured CUDA graph (utils/graphs.py).
+nothing back to the host inside its loop. On the card a float64 window
+(refine.BA_DTYPE) runs the whole loop in one launch of the kernel
+csrc/windowed_ba.cu (ops/cuda_ba.py), whose plain twin is run_ba_eager;
+a window the kernel does not take is one captured CUDA graph of
+run_ba_eager (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from droplet_visual_odometry_tpu_torch.core import se3
-from droplet_visual_odometry_tpu_torch.ops import linalg
+from droplet_visual_odometry_tpu_torch.ops import cuda_ba, linalg
 from droplet_visual_odometry_tpu_torch.utils import graphs
 
 
@@ -205,11 +208,30 @@ def run_ba_eager(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
     return BAResult(poses=poses, points=points, initial_cost=cost0, final_cost=cost, rms_px=rms)
 
 
+def runs_in_kernel(window: BAWindow) -> bool:
+    """Whether run_ba takes the window to the kernel: a CUDA window of a
+    dtype and shape it takes (ops/cuda_ba.fits: float64, W <= 18)."""
+    W, L = window.obs_mask.shape
+    return window.poses.device.type == "cuda" and cuda_ba.fits(W, L, window.poses.dtype)
+
+
 def run_ba(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
     """Levenberg-Marquardt windowed BA: cfg.iters steps, each accepted or
-    rejected on the device. On a CUDA device this replays one captured CUDA
-    graph per (W, L, BAConfig), the whole LM loop (the reference's
-    jax.jit(run_ba)); elsewhere it runs run_ba_eager."""
+    rejected on the device. On a CUDA device, a window the kernel takes
+    (`runs_in_kernel`) runs every step in one launch of csrc/windowed_ba.cu,
+    summed in a fixed order (two runs give the same bits); any other CUDA
+    window (float32, W > 18) replays one captured CUDA graph per (W, L,
+    BAConfig), the whole LM loop (the reference's jax.jit(run_ba));
+    elsewhere it runs run_ba_eager."""
+    if runs_in_kernel(window):
+        return BAResult(*cuda_ba.run_ba_cuda(BAWindow(*(t.contiguous() for t in window)), cfg))
+    return run_ba_graph(window, cfg)
+
+
+def run_ba_graph(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
+    """run_ba_eager as one captured CUDA graph per (W, L, BAConfig) on a CUDA
+    device (utils/graphs.py), op by op elsewhere: run_ba's path for a
+    window the kernel does not take."""
 
     def body(*tensors):
         return run_ba_eager(BAWindow(*tensors), cfg)

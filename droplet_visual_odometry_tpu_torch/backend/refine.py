@@ -26,8 +26,9 @@ frontend and the consecutive match, with its device interval), one
 min_views, `observations` in the BA mask, `skipped`, `accepted`) and
 `refine.reanchor`. A window holds `ba.tracks` (build, triangulate,
 filter and the track count's read-back), and unless skipped `ba.solve`
-(the run_ba replay and its read-back, with its device interval) and
-`ba.gate`.
+(run_ba and its read-back, with its device interval; count `ba_kernel`, 1
+when the LM loop ran in the kernel csrc/windowed_ba.cu, 0 when it ran as
+the captured op-by-op program) and `ba.gate`.
 """
 
 from __future__ import annotations
@@ -189,8 +190,10 @@ def refine_trajectory(
                 start += W - 2
                 continue
 
-            with profiling.span("ba.solve", device=dev):
-                res = ba.run_ba(ba.BAWindow(poses=poses0, points=X, obs_uv=grid.obs_uv, obs_mask=mask, K=Kt), cfg.ba)
+            with profiling.span("ba.solve", device=dev) as solve:
+                window = ba.BAWindow(poses=poses0, points=X, obs_uv=grid.obs_uv, obs_mask=mask, K=Kt)
+                res = ba.run_ba(window, cfg.ba)
+                solve.set(ba_kernel=int(ba.runs_in_kernel(window)))
                 new_poses = res.poses.cpu().numpy().astype(np.float64)
                 final_cost = float(res.final_cost)
                 initial_cost = float(res.initial_cost)

@@ -8,6 +8,9 @@
   cuda_pcg.pcg_cuda                  csrc/pose_graph_pcg.cu (replaces no TPU kernel: the pose
                                                              graph's op-by-op CG loop,
                                                              cuda_pcg.pcg_plain)
+  cuda_ba.run_ba_cuda                csrc/windowed_ba.cu    (replaces no TPU kernel: the windowed
+                                                             BA's op-by-op LM loop,
+                                                             cuda_ba.run_ba_plain)
 
 Each wrapper runs its plain twin for CPU tensors and its kernel for CUDA
 tensors, and raises otherwise; there is no fallback and no switch. Each keeps

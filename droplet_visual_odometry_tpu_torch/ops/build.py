@@ -41,6 +41,7 @@ last_ptxas_report = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points and their argument types; every pointer and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int and cut).
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "dvo_orb_describe": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "dvo_pose_graph_pcg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
+    "dvo_windowed_ba": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P],
 }
 
 

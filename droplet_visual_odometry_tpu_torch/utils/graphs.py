@@ -90,11 +90,12 @@ CAPACITY = 6  # captured programs kept per device
 
 
 def launch_counts() -> dict[str, int]:
-    """The four kernels' launch counters, read now."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_describe, cuda_fast, cuda_match, cuda_pcg
+    """The five kernels' launch counters, read now."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_match, cuda_pcg
 
     return {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
-            "hamming_match": cuda_match.LAUNCHES, "pose_graph_pcg": cuda_pcg.LAUNCHES}
+            "hamming_match": cuda_match.LAUNCHES, "pose_graph_pcg": cuda_pcg.LAUNCHES,
+            "windowed_ba": cuda_ba.LAUNCHES}
 
 
 @dataclasses.dataclass
