@@ -26,7 +26,12 @@ Phases (any failure raises, so the exit code is non-zero):
      +-1 operands (the distance product alone, no reduction; the port never
      calls it), the time of a launch that does nothing (the floor of that
      timing), and a sweep at P=23 over K = 512, 1024, 2048 plus P=64 at
-     K=512, each point exact against the plain twin;
+     K=512, each point exact against the plain twin; the L2 match
+     (csrc/l2_match.cu) on the SIFT and SURF sets run_sequence makes of the
+     workload at K=8192, cycled to the float_vo cell's 143 pairs (l2_case):
+     distances within L2_DIST_TOL of its plain twin run in blocks of pairs,
+     indices equal off near-ties, the twin with TF32 on outside those
+     tolerances, two launches equal, timed beside its float32 bound;
   4. the port's main path, pipeline.run_experiment(backend="none",
      device="cuda"), with every kernel's launch counter checked (FAST and
      describe once per pyramid level, match once, in the captured VO
@@ -117,8 +122,8 @@ Phases (any failure raises, so the exit code is non-zero):
      with the convert's step walls, the CLI's wall and frames/s;
   8. the float frontends (phase S): on the bench workload, run_sequence with
      VOConfig(frontend=m, match_mode="ratio", dog_threshold=0.5) for m in
-     sift and surf: warm wall, frames/s, device idle share, launches of the
-     three kernels (none); on PARITY.md's clean scenario (60 frames at
+     sift and surf: warm wall, frames/s, device idle share, launches (the
+     L2 match kernel's alone, once a capture tick); on PARITY.md's clean scenario (60 frames at
      640x480) run_experiment(backend="none"), its ATE and per-pair
      ratio-match counts held to the JAX package's;
   8b. the accuracy-parity harness (phase P,
@@ -217,7 +222,8 @@ import torch
 
 # The kernels' timing, peaks and roofline counts are the benchmark's.
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark"))
-from roofline import fast_score as fast_roof, hamming_match as match_roof, orb_describe as desc_roof  # noqa: E402
+from roofline import fast_score as fast_roof, hamming_match as match_roof, l2_match as l2_roof  # noqa: E402
+from roofline import orb_describe as desc_roof  # noqa: E402
 from vobench.kerneltime import F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, bound_ms, device_ms  # noqa: E402
 
 # NVIDIA's H100 SXM data sheet: float64 outside the tensor cores, at the full 700 W (the windowed BA kernel's rate).
@@ -375,7 +381,22 @@ REPLACES = {
     "orb_describe": "droplet_visual_odometry_tpu/ops/pallas_patches.py:103",
     "hamming_match": "droplet_visual_odometry_tpu/ops/pallas_match.py:105",
     "pose_graph_pcg": "none: the CG loop of droplet_visual_odometry_tpu/backend/pose_graph.py:143, XLA ops",
+    "l2_match": "none: the float match over l2_matrix, droplet_visual_odometry_tpu/frontend/matcher.py:46, XLA ops",
 }
+
+# The L2 match kernel (csrc/l2_match.cu) on the SIFT sets run_sequence makes
+# of the bench workload, its 24 frames cycled to the float_vo cell's 144 (143
+# pairs of K = 8192), and on the SURF sets (D = 64) alike: d1 and d2 within
+# L2_DIST_TOL of the plain twin (unit-norm descriptors, d^2 <= 4, a D-term
+# float32 sum in another order), i1 and col_best equal where the line's best
+# leads its second by more than L2_GAP (the card tests' tolerances, which
+# the twin computed with TF32 fails). The twin runs L2_PLAIN_BLOCK pairs at
+# a time: at P = 143 the whole (P, K, K) matrix is 38.4 GB.
+L2_PAIRS = 143
+L2_K = 8192
+L2_DIST_TOL = 2e-6
+L2_GAP = 1e-5
+L2_PLAIN_BLOCK = 8
 
 # The match's bound at the popcount rate, beside the benchmark's int8 one:
 # 32-bit popcounts per clock per SM (16 on sm_90) over the H100 SXM's 132 SMs.
@@ -630,6 +651,95 @@ def match_case(label: str, da, db, va, vb) -> dict:
     return dict(p=p, k=k, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, share=b_ms / ms, max_abs_err=err)
 
 
+def l2_pairs(seq, mode: str) -> tuple[torch.Tensor, ...]:
+    """The float frontend's sets of the bench workload, as run_sequence makes
+    them (the remapped frames, K = L2_K), at the float_vo cell's L2_PAIRS
+    pairs: the frames cycled as the benchmark cycles a clip (frame i is
+    frame i mod (n - 1)). (desc_a, desc_b, valid_a, valid_b), contiguous."""
+    from droplet_visual_odometry_tpu_torch import pipeline
+    from droplet_visual_odometry_tpu_torch.frontend import sift, surf
+
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames)
+    feats = {"sift": sift, "surf": surf}[mode].detect_and_describe(frames, k=L2_K)
+    idx = torch.arange(L2_PAIRS + 1, device="cuda") % (len(seq) - 1)
+    return tuple(t[i].contiguous() for t in (feats.desc, feats.valid) for i in (idx[:-1], idx[1:]))
+
+
+def l2_plain_blocks(a, b, va, vb):
+    """The L2 match's plain twin L2_PLAIN_BLOCK pairs at a time."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_l2match
+
+    parts = [cuda_l2match.l2_match_reductions_plain(a[s:s + L2_PLAIN_BLOCK], b[s:s + L2_PLAIN_BLOCK],
+                                                    va[s:s + L2_PLAIN_BLOCK], vb[s:s + L2_PLAIN_BLOCK])
+             for s in range(0, a.shape[0], L2_PLAIN_BLOCK)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def l2_col_gaps(a, b, va, vb) -> torch.Tensor:
+    """(P, K): each column's second-least squared distance less its least."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_l2match
+
+    gaps = []
+    for s in range(0, a.shape[0], L2_PLAIN_BLOCK):
+        sl = slice(s, s + L2_PLAIN_BLOCK)
+        two = torch.topk(cuda_l2match.l2_matrix(a[sl], b[sl], va[sl], vb[sl]), 2, dim=-2, largest=False).values
+        gaps.append(two[:, 1] - two[:, 0])
+    return torch.cat(gaps)
+
+
+def l2_differ(got, want, row_gap, col_gap) -> dict:
+    """How far the kernel's (d1, i1, d2, col_best) lie from the twin's: the
+    largest distance error, and the indices that differ off near-ties."""
+    rows, cols = row_gap > L2_GAP, col_gap > L2_GAP
+    return dict(max_abs_err=max(float((got[0] - want[0]).abs().max()), float((got[2] - want[2]).abs().max())),
+                i1_differ=int((got[1] != want[1])[rows].sum()), col_best_differ=int((got[3] != want[3])[cols].sum()),
+                rows_compared=int(rows.sum()), cols_compared=int(cols.sum()))
+
+
+def l2_case(seq, mode: str) -> dict:
+    """The L2 match kernel on the float frontend's sets at the float_vo
+    cell's shapes: within the tolerances of its plain twin (TF32 off), the
+    same twin with TF32 on outside them, timed beside its float32 bound."""
+    from droplet_visual_odometry_tpu_torch.ops import cuda_l2match
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = l2_pairs(seq, mode)
+    p, k, d = args[0].shape
+    got = cuda_l2match.l2_match_reductions_cuda(*args)
+    want = l2_plain_blocks(*args)
+    row_gap, col_gap = want[2] - want[0], l2_col_gaps(*args)
+    r = l2_differ(got, want, row_gap, col_gap)
+    if r["max_abs_err"] > L2_DIST_TOL or r["i1_differ"] or r["col_best_differ"]:
+        raise AssertionError(f"l2_match {mode} {(p, k, d)} against its twin: {r}")
+    if r["rows_compared"] < 0.5 * p * k or r["cols_compared"] < 0.5 * p * k:
+        raise AssertionError(f"l2_match {mode}: too few lines clear of near-ties to compare: {r}")
+    # The tolerances' teeth on these sets: the first block's twin with TF32 matmuls.
+    sl = slice(0, L2_PLAIN_BLOCK)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = l2_plain_blocks(*(t[sl] for t in args))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t = l2_differ(tuple(x[sl] for x in got), tf32, row_gap[sl], col_gap[sl])
+    if t["max_abs_err"] <= L2_DIST_TOL and not (t["i1_differ"] or t["col_best_differ"]):
+        raise AssertionError(f"l2_match {mode}: the TF32 twin passes the tolerances: {t}")
+    again = cuda_l2match.l2_match_reductions_cuda(*args)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"l2_match {mode}: two launches differ")
+    ms = device_ms(lambda: cuda_l2match.l2_match_reductions_cuda(*args))
+    row = dict(p=p, k=k, d=d, ms=ms, call_ms=call_ms(lambda: cuda_l2match.l2_match_reductions_cuda(*args), reps=5),
+               plain_ms=device_ms(lambda: l2_plain_blocks(*args), reps=3, warmup=1),
+               **roof(*l2_roof.counts(p, k, d), F32_OPS_PER_S), **r, tf32_twin=t,
+               valid_share=float(args[2].float().mean()))
+    row["share"] = row["bound_ms"] / ms
+    log(f"l2_match {mode} P={p} K={k} D={d} (valid {row['valid_share']:.4f}): within {L2_DIST_TOL} of plain "
+        f"(max {r['max_abs_err']:.3g}; indices equal on {r['rows_compared']} rows, {r['cols_compared']} columns "
+        f"clear of near-ties), TF32 twin {t['max_abs_err']:.3g} with {t['i1_differ']} / {t['col_best_differ']} "
+        f"indices off; two launches equal; kernel {ms:.4f} ms, one call {row['call_ms']:.4f} ms, f32 bound "
+        f"{row['bound_ms']:.4f} ms ({row['share']:.3f}), plain in blocks of {L2_PLAIN_BLOCK} {row['plain_ms']:.4f} ms")
+    return row
+
+
 def phase_kernels(seq):
     from droplet_visual_odometry_tpu_torch.frontend import features
     from droplet_visual_odometry_tpu_torch.ops import cuda_match
@@ -683,6 +793,9 @@ def phase_kernels(seq):
             source="droplet_visual_odometry_tpu_torch/csrc/hamming_match.cu",
         ),
     }
+    # Kernel 6: the float match at the float_vo cell's shapes, SIFT (the row) and SURF.
+    l2 = l2_case(seq, "sift")
+    results["l2_match"] = dict(l2, surf=l2_case(seq, "surf"), source="droplet_visual_odometry_tpu_torch/csrc/l2_match.cu")
     for name, r in results.items():
         log(f"{name}: kernel {r['ms']:.4f} ms (one call with its launch {r['call_ms']:.4f} ms), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1110,10 +1223,11 @@ def reset_launches() -> None:
     runs, and its counts show each program's kernels: the counters tick
     where a wrapper's Python runs (a capture's warm-up and the capture
     itself, CAPTURE_TICKS per kernel of the program), never on a replay."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_match, cuda_pcg
+    from droplet_visual_odometry_tpu_torch.ops import (
+        cuda_ba, cuda_describe, cuda_fast, cuda_l2match, cuda_match, cuda_pcg)
     from droplet_visual_odometry_tpu_torch.utils import graphs
 
-    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg, cuda_ba):
+    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg, cuda_ba, cuda_l2match):
         mod.LAUNCHES = 0
     graphs.clear()
 
@@ -2100,7 +2214,8 @@ def phase_ingest(seq, stream: dict, results) -> dict:
         if synth_diff > SYNTH_ATE_TOL or synth["median_matches"] != int(np.median(ref.trajectory.n_matches)):
             raise AssertionError("the synthetic CLI run differs from the in-process run")
         if synth_launches != {"fast_score": 4 * CAPTURE_TICKS, "orb_describe": 4 * CAPTURE_TICKS,
-                              "hamming_match": CAPTURE_TICKS, "pose_graph_pcg": 0, "windowed_ba": 0}:
+                              "hamming_match": CAPTURE_TICKS, "pose_graph_pcg": 0, "windowed_ba": 0,
+                              "l2_match": 0}:
             raise AssertionError(f"synthetic CLI launches {synth_launches}")
 
         # analyze on both TUM directories. It scores every frame of the streams (as the reference's
@@ -2152,8 +2267,8 @@ def phase_ingest(seq, stream: dict, results) -> dict:
 def phase_float(seq) -> dict:
     """Phase S, the SIFT and SURF frontends: on the bench workload, a warm
     run_sequence per mode (wall, frames/s, the device idle share under
-    torch.profiler, launches of the three kernels: none, the float path has
-    no kernel of its own); on PARITY.md's clean scenario,
+    torch.profiler, launches: the float match's kernel, csrc/l2_match.cu,
+    once a capture tick, and no kernel of the ORB path); on PARITY.md's clean scenario,
     run_experiment(backend="none") with the ATE and the per-pair ratio-match
     counts held to the JAX package's."""
     from droplet_visual_odometry_tpu_torch import parity, pipeline
@@ -2172,8 +2287,8 @@ def phase_float(seq) -> dict:
         traj = run_sequence(*args, seed=SEED)
         torch.cuda.synchronize()
         launches = read_launches()
-        if any(launches.values()):
-            raise AssertionError(f"{mode}: the float path launched a kernel of the ORB path: {launches}")
+        if launches != {**{k: 0 for k in launches}, "l2_match": CAPTURE_TICKS}:
+            raise AssertionError(f"{mode}: expected the L2 match kernel alone, {CAPTURE_TICKS} ticks: {launches}")
         if not torch.isfinite(traj.abs_poses).all() or float(traj.ok.float().mean()) < 0.9:
             raise AssertionError(f"{mode}: non-finite poses or pairs ok {float(traj.ok.float().mean())}")
         warm = wall_ms(lambda: run_sequence(*args, seed=SEED), reps=3)
@@ -2354,7 +2469,7 @@ def phase_online(seq, none_traj, kernels) -> dict:
     launches = dict(vo.captured_launches)
     n_levels = cfg.n_levels
     if launches != {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1, "pose_graph_pcg": 0,
-                    "windowed_ba": 0}:
+                    "windowed_ba": 0, "l2_match": 0}:
         raise AssertionError(f"expected {n_levels}/{n_levels}/1/0 launches in the push graph, got {launches}")
     nm = np.asarray([r.n_matches for r in results])
 
@@ -2539,7 +2654,7 @@ def mesh_world_one(loop_seq, pg: dict, ba: dict, kernels: dict) -> dict:
     log(f"M1 shard_pair_vo over {MESH_PAIRS} pairs of 1440x1080 (NCCL, world 1): kernel launches {launches}, "
         f"captured {[p.captured_launches for p in progs]}")
     per_replay = {"fast_score": cfg.n_levels, "orb_describe": cfg.n_levels, "hamming_match": 1, "pose_graph_pcg": 0,
-                  "windowed_ba": 0}
+                  "windowed_ba": 0, "l2_match": 0}
     if launches != {k: CAPTURE_TICKS * v for k, v in per_replay.items()}:
         raise AssertionError(f"expected {CAPTURE_TICKS} x {per_replay} launches (one capture of the 2B frames' "
                              f"program), got {launches}")

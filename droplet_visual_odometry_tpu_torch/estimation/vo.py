@@ -75,11 +75,19 @@ def two_frame_vo(
 ) -> VOStepResult:
     """P frame pairs -> scaled relative poses: match, LO-RANSAC + pose, marker
     scale. Degenerate pairs yield rel = identity with ok = False. RANSAC
-    draws from the pairs' keys (P, 2) or the injected u_hyp/u_lo."""
-    m = matcher.match(
-        feats_prev.desc, feats_curr.desc, feats_prev.valid, feats_curr.valid,
-        mode=cfg.match_mode, ratio=cfg.ratio,
-    )
+    draws from the pairs' keys (P, 2) or the injected u_hyp/u_lo.
+
+    Captured, the match is the stage `vo.match` (profiling.device_stage),
+    counting its pairs, keypoints, descriptor length (`dim`: 8 words for
+    ORB) and `l2_kernel`, 1 when a float match runs in csrc/l2_match.cu
+    (float sets on a CUDA device), 0 otherwise."""
+    desc = feats_prev.desc
+    with profiling.device_stage("vo.match", pairs=desc.shape[0], keypoints=desc.shape[1], dim=desc.shape[-1],
+                                l2_kernel=int(desc.is_floating_point() and desc.device.type == "cuda")):
+        m = matcher.match(
+            feats_prev.desc, feats_curr.desc, feats_prev.valid, feats_curr.valid,
+            mode=cfg.match_mode, ratio=cfg.ratio,
+        )
     p_prev, p_curr, valid = matcher.gather_correspondences(feats_prev.xy, feats_curr.xy, m)
     n_matches = torch.sum(valid, dim=-1).to(torch.int32)
 
@@ -155,8 +163,9 @@ def _sequence_body(
 
     Captured, the body times its two stages on every replay
     (profiling.device_stage): `vo.frontend` (the draws' keys, pyramid,
-    FAST, NMS/top-k, blur, describe) and `vo.solver` (match, LO-RANSAC,
-    scale, chain)."""
+    FAST, NMS/top-k, blur, describe; with a float frontend it holds
+    `vo.float_detect` and `vo.float_describe`) and `vo.solver` (match,
+    LO-RANSAC, scale, chain; it holds `vo.match`)."""
     n = frames.shape[0]
     with profiling.device_stage("vo.frontend", frames=n):
         keys = None

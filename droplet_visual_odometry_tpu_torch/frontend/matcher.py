@@ -1,14 +1,15 @@
 """Descriptor matching with cross-check / Lowe ratio — port of
 droplet_visual_odometry_tpu/frontend/matcher.py, batched over frame pairs.
 
-Binary (ORB) sets always go through the match reductions of
-ops/cuda_match.py: kernel 3 on CUDA tensors, its plain twin on CPU tensors.
-Sets of unequal size are padded to the larger with invalid entries, which
-the reductions rank after every real one. Float (SIFT/SURF) sets go through
-`l2_matrix`, one f32 matmul, as the reference computes them outside any
-Pallas kernel. `match_crosscheck` and `match_ratio` are the reference's
-matrix-form matchers over `hamming_matrix` (defined in ops/cuda_match.py) or
-`l2_matrix`; the tests hold `match` equal to them.
+Every set goes through match reductions that never write the (P, Ka, Kb)
+matrix: binary (ORB) sets those of ops/cuda_match.py (csrc/hamming_match.cu
+on CUDA tensors), float (SIFT/SURF) sets those of ops/cuda_l2match.py
+(csrc/l2_match.cu on CUDA tensors, squared L2 in float32); CPU tensors take
+each kernel's plain twin. Sets of unequal size are padded to the larger
+with invalid entries, which the reductions rank after every real one.
+`match_crosscheck` and `match_ratio` are the reference's matrix-form
+matchers over `hamming_matrix` (defined in ops/cuda_match.py) or
+`l2_matrix` (ops/cuda_l2match.py); the tests hold `match` equal to them.
 """
 
 from __future__ import annotations
@@ -17,29 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from droplet_visual_odometry_tpu_torch.ops.cuda_l2match import l2_match_reductions_cuda, l2_matrix  # noqa: F401
 from droplet_visual_odometry_tpu_torch.ops.cuda_match import BIG, hamming_matrix, match_reductions_cuda  # noqa: F401
-
-
-def l2_matrix(
-    desc_a: torch.Tensor,
-    desc_b: torch.Tensor,
-    valid_a: torch.Tensor | None = None,
-    valid_b: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """(..., Ka, D) x (..., Kb, D) float descriptors -> (..., Ka, Kb) squared
-    L2 distances |a|^2 + |b|^2 - 2 a.b (one f32 matmul, TF32 off), clamped
-    at 0; invalid rows/cols are BIG."""
-    a = desc_a.to(torch.float32)
-    b = desc_b.to(torch.float32)
-    dot = a @ b.transpose(-1, -2)
-    na = torch.sum(a * a, dim=-1)
-    nb = torch.sum(b * b, dim=-1)
-    d2 = torch.clamp(na[..., :, None] + nb[..., None, :] - 2.0 * dot, min=0.0)
-    if valid_a is not None:
-        d2 = torch.where(valid_a[..., :, None], d2, torch.full_like(d2, BIG))
-    if valid_b is not None:
-        d2 = torch.where(valid_b[..., None, :], d2, torch.full_like(d2, BIG))
-    return d2
 
 
 class Matches(NamedTuple):
@@ -81,28 +61,27 @@ def match(
 ) -> Matches:
     """Match (P, Ka, D) against (P, Kb, D) descriptor sets pairwise
     ('crosscheck' or 'ratio'): int32 packed ORB words (D = 8) or float
-    SIFT/SURF vectors."""
+    SIFT/SURF vectors (squared L2, so the ratio and the distance gate are
+    squared and the gate is BIG / 2, which only an invalid entry exceeds)."""
     if mode not in ("crosscheck", "ratio"):
         raise ValueError(f"unknown match mode: {mode}")
-    if desc_a.is_floating_point():
-        # Squared L2: the ratio is specified on true distances, so square it.
-        dist = l2_matrix(desc_a, desc_b, valid_a, valid_b)
-        if mode == "crosscheck":
-            return match_crosscheck(dist, max_distance=BIG / 2)
-        return match_ratio(dist, ratio=ratio * ratio, max_distance=BIG / 2)
-
     p, ka, kb = desc_a.shape[0], desc_a.shape[1], desc_b.shape[1]
     dev = desc_a.device
     va = torch.ones((p, ka), dtype=torch.bool, device=dev) if valid_a is None else valid_a.to(torch.bool)
     vb = torch.ones((p, kb), dtype=torch.bool, device=dev) if valid_b is None else valid_b.to(torch.bool)
     k = max(ka, kb)
     # The reductions take equal sets: pad the smaller with invalid entries
-    # (distance 512 in the reductions, after every real one; ties go to the
-    # lower index), so no real row picks a padded column unless all its
-    # columns are invalid, and then d1 is BIG and the match invalid.
+    # (distance 512 in the Hamming reductions, BIG in the L2 ones: after
+    # every real one; ties go to the lower index), so no real row picks a
+    # padded column unless all its columns are invalid, and then d1 is BIG
+    # and the match invalid.
     da, va = _pad_invalid(desc_a, va, k)
     db, vb = _pad_invalid(desc_b, vb, k)
-    d1, i1, d2, col_best = match_reductions_cuda(da, db, va, vb)
+    if desc_a.is_floating_point():
+        d1, i1, d2, col_best = l2_match_reductions_cuda(da.to(torch.float32), db.to(torch.float32), va, vb)
+        ratio, max_distance = ratio * ratio, BIG / 2
+    else:
+        d1, i1, d2, col_best = match_reductions_cuda(da, db, va, vb)
     d1, d2 = d1[:, :ka], d2[:, :ka]
     i1 = torch.clamp(i1[:, :ka].to(torch.int64), max=kb - 1)
     if mode == "crosscheck":
@@ -114,7 +93,7 @@ def match(
 
 
 def _pad_invalid(desc: torch.Tensor, valid: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(P, K0, 8) words and (P, K0) mask padded to K entries, the new ones invalid."""
+    """(P, K0, D) descriptors and (P, K0) mask padded to K entries, the new ones invalid."""
     pad = k - desc.shape[1]
     if pad:
         desc = torch.cat([desc, desc.new_zeros((desc.shape[0], pad, desc.shape[2]))], dim=1)

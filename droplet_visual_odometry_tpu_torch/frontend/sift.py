@@ -32,6 +32,7 @@ from droplet_visual_odometry_tpu_torch.frontend.orb import (
     extract_patches,
     orientation,
 )
+from droplet_visual_odometry_tpu_torch.utils import profiling
 
 N_CELLS = 4  # 4x4 spatial grid
 N_ORI = 8  # orientation bins
@@ -174,26 +175,35 @@ def octave_count(h: int, w: int, n_octaves: int) -> int:
 def detect_octaves(imgs: torch.Tensor, k: int, threshold: float, n_octaves: int, detect, describe_fn) -> Features:
     """The octave loop shared by the SIFT and SURF frontends: a power-of-two
     pyramid (downsample2), a static per-octave budget summing to k, detect
-    and describe at each octave's resolution, coordinates times 2^o."""
+    and describe at each octave's resolution, coordinates times 2^o.
+
+    Every octave is detected first, then every octave described, so that a
+    captured program times the two as the stages `vo.float_detect` (the
+    pyramid, the response, NMS and top-k) and `vo.float_describe` (blur,
+    patches, histograms), each counting its frames and keypoints."""
     from droplet_visual_odometry_tpu_torch.frontend.features import level_budgets
 
     imgs = imgs.to(torch.float32)
-    h0, w0 = imgs.shape[-2], imgs.shape[-1]
+    n, h0, w0 = imgs.shape[0], imgs.shape[-2], imgs.shape[-1]
     n_octaves = octave_count(h0, w0, n_octaves)
     budgets = level_budgets(k, n_octaves, 2.0) if n_octaves > 1 else [k]
+    with profiling.device_stage("vo.float_detect", frames=n, keypoints=k):
+        octaves = []
+        oct_img = imgs
+        for o in range(n_octaves):
+            if o > 0:
+                oct_img = filters.downsample2(oct_img)
+            octaves.append((oct_img, detect(oct_img, k=budgets[o], threshold=threshold)))
     parts = []
-    oct_img = imgs
-    for o in range(n_octaves):
-        if o > 0:
-            oct_img = filters.downsample2(oct_img)
-        lh, lw = oct_img.shape[-2], oct_img.shape[-1]
-        kps = detect(oct_img, k=budgets[o], threshold=threshold)
-        blur = filters.gaussian_blur(oct_img, sigma=2.0, radius=4)
-        desc, ang = describe_fn(blur, kps)
-        x, y = kps.xy[..., 0], kps.xy[..., 1]
-        interior = (x >= HALF) & (x < lw - HALF) & (y >= HALF) & (y < lh - HALF)
-        parts.append(Features(xy=kps.xy * float(2**o), score=kps.score, angle=ang, desc=desc,
-                              valid=kps.valid & interior))
+    with profiling.device_stage("vo.float_describe", frames=n, keypoints=k):
+        for o, (oct_img, kps) in enumerate(octaves):
+            lh, lw = oct_img.shape[-2], oct_img.shape[-1]
+            blur = filters.gaussian_blur(oct_img, sigma=2.0, radius=4)
+            desc, ang = describe_fn(blur, kps)
+            x, y = kps.xy[..., 0], kps.xy[..., 1]
+            interior = (x >= HALF) & (x < lw - HALF) & (y >= HALF) & (y < lh - HALF)
+            parts.append(Features(xy=kps.xy * float(2**o), score=kps.score, angle=ang, desc=desc,
+                                  valid=kps.valid & interior))
     if n_octaves == 1:
         return parts[0]
     return Features(*(torch.cat(xs, dim=1) for xs in zip(*parts)))

@@ -11,6 +11,11 @@
   cuda_ba.run_ba_cuda                csrc/windowed_ba.cu    (replaces no TPU kernel: the windowed
                                                              BA's op-by-op LM loop,
                                                              cuda_ba.run_ba_plain)
+  cuda_l2match.l2_match_reductions_cuda
+                                     csrc/l2_match.cu       (replaces no TPU kernel: the float
+                                                             match over the whole (P, K, K)
+                                                             l2_matrix, which the JAX package
+                                                             leaves to XLA)
 
 Each wrapper runs its plain twin for CPU tensors and its kernel for CUDA
 tensors, and raises otherwise; there is no fallback and no switch. Each keeps

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "dvo_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "dvo_pose_graph_pcg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
     "dvo_windowed_ba": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P],
+    "dvo_l2_match_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -90,12 +90,13 @@ CAPACITY = 6  # captured programs kept per device
 
 
 def launch_counts() -> dict[str, int]:
-    """The five kernels' launch counters, read now."""
-    from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_match, cuda_pcg
+    """The six kernels' launch counters, read now."""
+    from droplet_visual_odometry_tpu_torch.ops import (
+        cuda_ba, cuda_describe, cuda_fast, cuda_l2match, cuda_match, cuda_pcg)
 
     return {"fast_score": cuda_fast.LAUNCHES, "orb_describe": cuda_describe.LAUNCHES,
             "hamming_match": cuda_match.LAUNCHES, "pose_graph_pcg": cuda_pcg.LAUNCHES,
-            "windowed_ba": cuda_ba.LAUNCHES}
+            "windowed_ba": cuda_ba.LAUNCHES, "l2_match": cuda_l2match.LAUNCHES}
 
 
 @dataclasses.dataclass

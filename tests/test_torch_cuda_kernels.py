@@ -17,7 +17,7 @@ from droplet_visual_odometry_tpu_torch.data import synthetic
 from droplet_visual_odometry_tpu_torch.estimation.vo import VOConfig
 from droplet_visual_odometry_tpu_torch.eval import metrics
 from droplet_visual_odometry_tpu_torch.frontend import features, orb
-from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_match, cuda_pcg
+from droplet_visual_odometry_tpu_torch.ops import cuda_ba, cuda_describe, cuda_fast, cuda_l2match, cuda_match, cuda_pcg
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +37,7 @@ def _count_from_zero():
     from droplet_visual_odometry_tpu_torch.utils import graphs
 
     graphs.clear()
-    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg, cuda_ba):
+    for mod in (cuda_fast, cuda_describe, cuda_match, cuda_pcg, cuda_ba, cuda_l2match):
         mod.LAUNCHES = 0
 
 
@@ -717,8 +717,10 @@ def test_online_vo_graph_replay_equals_eager(cuda_device, frontend):
     n_levels = VOConfig().n_levels
     if frontend == "orb":
         assert vo.captured_launches == {"fast_score": n_levels, "orb_describe": n_levels, "hamming_match": 1,
-                                        "pose_graph_pcg": 0, "windowed_ba": 0}
+                                        "pose_graph_pcg": 0, "windowed_ba": 0, "l2_match": 0}
         assert counts[0] == (2 * n_levels, 2 * n_levels, 2) and set(counts[1:]) == {(0, 0, 0)}
+    else:
+        assert vo.captured_launches["l2_match"] == 1 and vo.captured_launches["hamming_match"] == 0
     gt = np.linalg.inv(np.asarray(seq.marker_poses[-1], np.float64))[:3, 3]
     assert np.linalg.norm(np.linalg.inv(vo.pose.astype(np.float64))[:3, 3] - gt) < 0.25
 
@@ -1109,7 +1111,8 @@ def test_optimize_step_runs_its_cg_in_one_kernel_launch(cuda_device):
     assert len(steps) == 10 and all(r.attrs["pcg_kernel"] == 1 for r in steps)
     progs = [p for p in graphs.programs() if p.name == "optimize_step"]
     assert len(progs) == 1 and progs[0].captured_launches == {"fast_score": 0, "orb_describe": 0, "hamming_match": 0,
-                                                              "pose_graph_pcg": 1, "windowed_ba": 0}
+                                                              "pose_graph_pcg": 1, "windowed_ba": 0,
+                                                              "l2_match": 0}
     assert cuda_pcg.LAUNCHES == 2  # the warm-up and the capture; replays tick no counter
     assert float(res.final_cost) < float(res.initial_cost)
     eager = pose_graph.optimize_eager(f64(loops))
@@ -1190,7 +1193,196 @@ def test_sharded_programs_capture_their_collectives_on_nccl_world_one(nccl_world
             assert all(torch.equal(x, y) and torch.equal(z, y) for x, y, z in zip(again, ref, first))
     launches = {p.name: p.captured_launches for p in graphs.programs() if p.mesh is mesh}
     assert launches["shard_pair_vo"] == {"fast_score": 4, "orb_describe": 4, "hamming_match": 1, "pose_graph_pcg": 0,
-                                         "windowed_ba": 0}
+                                         "windowed_ba": 0, "l2_match": 0}
     assert set(launches["optimize_step"].values()) == set(launches["run_ba_distributed"].values()) == {0}
     graphs.clear(mesh=mesh)
     assert not [p for p in graphs.programs() if p.mesh is not None]
+
+
+# -- the float (squared-L2) match kernel, csrc/l2_match.cu ---------------------------
+#
+# Tolerances: descriptors are unit-norm (SIFT's and SURF's are), so a squared
+# distance is at most 4 and is |a|^2 + |b|^2 - 2 a.b over D float32 terms;
+# the kernel and the twin (cuBLAS, TF32 off) sum those terms in different
+# orders, which moves a distance by a few ulps of 4 (2e-6 holds them). An
+# index is compared where the line's best is ahead of its second by more
+# than 1e-5, five times that: nearer ties may fall either way.
+
+L2_DIST_TOL = 2e-6
+L2_GAP = 1e-5
+
+
+def _float_sets(p, k, d, seed, device, valid_share=0.9):
+    """Non-negative unit-norm descriptors as SIFT's: B holds noisy copies of
+    A's rows in another order for half its rows, the rest fresh; masks with
+    `valid_share` valid."""
+    g = torch.Generator().manual_seed(seed)
+    norm = lambda x: x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    a = norm(torch.randn((p, k, d), generator=g).abs())
+    b = norm(torch.randn((p, k, d), generator=g).abs())
+    perm = torch.randperm(k, generator=g)
+    half = perm[: k // 2]
+    b[:, half] = norm((a[:, torch.roll(half, 1)] + 0.05 * torch.randn((p, k // 2, d), generator=g)).abs())
+    va = torch.rand((p, k), generator=g) < valid_share
+    vb = torch.rand((p, k), generator=g) < valid_share
+    return tuple(t.contiguous().to(device) for t in (a, b, va, vb))
+
+
+def _twin_in_blocks(a, b, va, vb, block=8):
+    """The plain twin on the card (TF32 off) a few pairs at a time, with each
+    row's and column's gap between its best and second best."""
+    outs, col_gaps = [], []
+    for s in range(0, a.shape[0], block):
+        sl = slice(s, s + block)
+        outs.append(cuda_l2match.l2_match_reductions_plain(a[sl], b[sl], va[sl], vb[sl]))
+        two = torch.topk(cuda_l2match.l2_matrix(a[sl], b[sl], va[sl], vb[sl]), 2, dim=-2, largest=False).values
+        col_gaps.append(two[:, 1] - two[:, 0])
+    d1, i1, d2, cb = (torch.cat(x) for x in zip(*outs))
+    return (d1, i1, d2, cb), d2 - d1, torch.cat(col_gaps)
+
+
+def _assert_l2_close(got, want, row_gap, col_gap):
+    d1, i1, d2, cb = got
+    w1, wi, w2, wc = want
+    assert float((d1 - w1).abs().max()) <= L2_DIST_TOL
+    assert float((d2 - w2).abs().max()) <= L2_DIST_TOL
+    rows, cols = row_gap > L2_GAP, col_gap > L2_GAP
+    assert torch.equal(i1[rows], wi[rows]) and torch.equal(cb[cols], wc[cols])
+    return int(rows.sum()), int(cols.sum())
+
+
+@pytest.mark.parametrize("p,k,d", [(8, 8192, 128), (143, 8192, 128), (8, 4096, 64), (5, 1000, 128), (3, 77, 64)])
+def test_l2_match_kernel_equals_twin(cuda_device, p, k, d):
+    """The kernel against its plain twin (l2_matrix and argmins, TF32 off) at
+    the SIFT cell's shapes (8 and 143 pairs of 8192), SURF's 64-d, and ragged
+    K: distances within L2_DIST_TOL, indices equal off near-ties."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b, va, vb = _float_sets(p, k, d, seed=p + k + d, device=cuda_device)
+    before = cuda_l2match.LAUNCHES
+    got = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    torch.cuda.synchronize()
+    assert cuda_l2match.LAUNCHES == before + 1
+    want, row_gap, col_gap = _twin_in_blocks(a, b, va, vb)
+    n_rows, n_cols = _assert_l2_close(got, want, row_gap, col_gap)
+    assert n_rows > 0.8 * p * k and n_cols > 0.8 * p * k  # all but the invalid tenth and near-ties
+
+
+def test_l2_match_kernel_breaks_ties_to_the_lowest_index(cuda_device):
+    """Exact ties: every column of B and every row of A repeated 600 places
+    further on give equal distances bit for bit, and the kernel keeps the
+    lower index of each tie, as the twin's argmin does."""
+    a, b, va, vb = _float_sets(2, 1200, 128, seed=7, device=cuda_device, valid_share=1.0)
+    src = torch.arange(0, 600, device=cuda_device)
+    b[:, 600 + src] = b[:, src]
+    a[:, 600 + src] = a[:, src]
+    d1, i1, d2, cb = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    want = cuda_l2match.l2_match_reductions_plain(a, b, va, vb)
+    assert float((d1 - want[0]).abs().max()) <= L2_DIST_TOL
+    assert bool((i1 < 600).all()) and bool((cb < 600).all())
+    assert torch.equal(d1, d2)  # every row's best appears twice
+
+
+@pytest.mark.parametrize("k", [100, 512])
+def test_l2_match_kernel_all_invalid_lines(cuda_device, k):
+    """A pair with every row invalid, one with every column invalid, and
+    lines partly invalid: an entry of an invalid line is BIG exactly, a line
+    with no valid entry gives BIG at index 0, as in the matrix form."""
+    a, b, va, vb = _float_sets(3, k, 128, seed=k, device=cuda_device, valid_share=0.7)
+    va[0] = False
+    vb[1] = False
+    got = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    want, row_gap, col_gap = _twin_in_blocks(a, b, va, vb)
+    _assert_l2_close(got, want, row_gap, col_gap)
+    d1, i1, d2, cb = got
+    big = cuda_match.BIG
+    assert bool((d1[0] == big).all() and (i1[0] == 0).all() and (d2[0] == big).all() and (cb[0] == 0).all())
+    assert bool((d1[1] == big).all() and (i1[1] == 0).all() and (cb[1] == 0).all())
+    assert torch.equal(d1[2] == big, ~va[2]) and bool((cb[2][~vb[2]] == 0).all())
+
+
+def test_l2_match_kernel_repeats_bit_for_bit(cuda_device):
+    """Two launches on the same sets give the same bits: the sums run in a
+    fixed order and the column keys' minimum does not depend on which CTA
+    reaches the key first."""
+    a, b, va, vb = _float_sets(16, 8192, 128, seed=3, device=cuda_device)
+    first = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    second = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_l2_match_tolerances_refuse_a_tf32_twin(cuda_device):
+    """The tolerances are tight enough to tell precision: the twin's matmul
+    in TF32 (10-bit operands) in the kernel's place fails them."""
+    a, b, va, vb = _float_sets(8, 8192, 128, seed=11, device=cuda_device)
+    got = cuda_l2match.l2_match_reductions_cuda(a, b, va, vb)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _, _ = _twin_in_blocks(a, b, va, vb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    with pytest.raises(AssertionError):
+        assert float((got[0] - tf32[0]).abs().max()) <= L2_DIST_TOL
+        assert float((got[2] - tf32[2]).abs().max()) <= L2_DIST_TOL
+
+
+def test_l2_match_wrapper_checks_its_inputs(cuda_device):
+    a, b, va, vb = _float_sets(2, 256, 128, seed=1, device=cuda_device)
+    call = cuda_l2match.l2_match_reductions_cuda
+    cut = lambda t: t[..., :96].contiguous()
+    strided = a.transpose(0, 1).contiguous().transpose(0, 1)
+    for bad in [(a, b.cpu(), va, vb), (a.double(), b.double(), va, vb), (cut(a), cut(b), va, vb),
+                (strided, b, va, vb), (a, b, va.to(torch.uint8), vb)]:
+        with pytest.raises(ValueError):
+            call(*bad)
+
+
+def test_float_match_on_cuda_runs_the_kernel_without_a_k_by_k_matrix(cuda_device):
+    """matcher.match on float sets at the SIFT cell's K: one kernel launch,
+    and the card's peak memory rises by far less than one (P, K, K) float32
+    matrix; the matches equal the CPU twin's off near-ties."""
+    from droplet_visual_odometry_tpu_torch.frontend import matcher
+
+    p, k = 4, 8192
+    a, b, va, vb = _float_sets(p, k, 128, seed=5, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = cuda_l2match.LAUNCHES
+    m = matcher.match(a, b, va, vb, mode="ratio", ratio=0.75)
+    torch.cuda.synchronize()
+    assert cuda_l2match.LAUNCHES == before + 1
+    assert torch.cuda.max_memory_allocated() - base < p * k * k * 4 / 64
+    want, row_gap, _ = _twin_in_blocks(a, b, va, vb, block=2)
+    ref_ok = (want[0] < 0.75 * 0.75 * want[2]) & (want[0] < cuda_match.BIG)
+    sure = (row_gap > L2_GAP) & ((want[0] - 0.5625 * want[2]).abs() > 1e-5)
+    assert torch.equal(m.valid[sure], ref_ok[sure]) and torch.equal(m.idx[sure], want[1][sure].to(torch.int64))
+
+
+def test_vo_match_stage_counts_the_l2_kernel_on_cuda(cuda_device):
+    """The captured VO program marks `vo.match`: every replay of a SIFT
+    sequence records its pairs, keypoints, D = 128 and l2_kernel = 1 (the
+    float match ran in csrc/l2_match.cu), an ORB sequence's D = 8 words and
+    l2_kernel = 0."""
+    import time
+
+    from droplet_visual_odometry_tpu_torch.estimation.vo import run_sequence
+    from droplet_visual_odometry_tpu_torch.utils import profiling
+
+    seq = _stream_sequence()
+    frames = pipeline.make_preprocessor(seq, "cuda")(seq.frames)
+    K = pipeline.effective_K(seq)
+    corners = pipeline.effective_marker_corners(seq, K)
+    sift = VOConfig(frontend="sift", n_keypoints=1024, match_mode="ratio", scale_mode="hold")
+    for cfg, dim, l2 in ((sift, 128, 1), (VOConfig(), 8, 0)):
+        args = (frames, corners, seq.marker_present, seq.marker_poses[0], K, seq.real_marker_length, cfg)
+        run_sequence(*args, seed=1)  # the capture
+        t0 = time.perf_counter()
+        for seed in (2, 3):
+            run_sequence(*args, seed=seed)
+            torch.cuda.synchronize()
+            profiling.RECORDER.resolve()  # as run_experiment does once it has read a replay's outputs
+        stages = [r for r in profiling.snapshot(t0) if r.name == "vo.match"]
+        assert len(stages) == 2 and all(r.dev_t1 > r.dev_t0 for r in stages)
+        assert all(r.attrs == dict(pairs=len(seq) - 1, keypoints=cfg.n_keypoints, dim=dim, l2_kernel=l2)
+                   for r in stages)
